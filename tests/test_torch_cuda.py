@@ -1,0 +1,137 @@
+"""The hand-written CUDA kernels against their plain twins, on the card.
+
+Marked ``cuda``; every test skips (inside a fixture, never at import) where
+torch sees no CUDA device. Run on a machine with a card:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fluorosequencingimageanalysis_torch.api import Pipeline
+from fluorosequencingimageanalysis_torch.config import (DetectConfig,
+                                                        PipelineConfig)
+from fluorosequencingimageanalysis_torch.ops.candidates import (
+    DEFAULT_CORRELATION_MATRIX, find_candidates_batch)
+from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+    candidate_map_fused, candidate_map_plain)
+from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+    fit_quality, fit_quality_plain)
+from fluorosequencingimageanalysis_torch.ops.gaussian import gauss2d_image
+from fluorosequencingimageanalysis_torch.ops.candidates import gather_patches
+from fluorosequencingimageanalysis_torch.utils.synth import make_stack
+
+pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(1)  # tier-1 runs several xdist workers per host
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _planted(b, h, w, seed):
+    if min(h, w) < 20:  # too small for planted spots: noise only
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.normal(400, 8, (b, h, w))
+                                .astype(np.float32))
+    stack, _ = make_stack(1, b, h, w, spots_per_field=max(4, h * w // 1500),
+                          seed=seed)
+    return torch.from_numpy(stack[0])
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 48, 100), (1, 33, 257), (2, 70, 130),
+                                   (3, 96, 384), (2, 5, 7)])
+def test_kernel_a_matches_twin(dev, b, h, w):
+    # Same float32 arithmetic but FMA contraction and another tap order:
+    # the Pallas kernel's own bound, rtol 2e-4 / atol 5e-2.
+    x = _planted(b, h, w, seed=h)
+    before = candidate_map_fused.launches
+    got = candidate_map_fused(x.to(dev), DEFAULT_CORRELATION_MATRIX)
+    torch.cuda.synchronize()
+    assert candidate_map_fused.launches == before + 1
+    ref = candidate_map_plain(x, DEFAULT_CORRELATION_MATRIX)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=2e-4,
+                               atol=5e-2)
+    # An arbitrary 5x5 template is a kernel argument, not compiled in.
+    tmpl = np.random.default_rng(0).normal(0, 1000, (5, 5))
+    got = candidate_map_fused(x.to(dev), tmpl)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               candidate_map_plain(x, tmpl).numpy(),
+                               rtol=2e-4, atol=5e-2)
+
+
+def test_kernel_a_rejects_what_it_does_not_take(dev):
+    x = torch.zeros((2, 32, 32), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        candidate_map_fused(x.double(), DEFAULT_CORRELATION_MATRIX)
+    with pytest.raises(ValueError, match="contiguous"):
+        candidate_map_fused(x.transpose(1, 2), DEFAULT_CORRELATION_MATRIX)
+    with pytest.raises(ValueError, match="images required"):
+        candidate_map_fused(x[None], DEFAULT_CORRELATION_MATRIX)
+
+
+@pytest.mark.parametrize("theta_starts", [1, 2])
+def test_kernel_b_matches_twin(dev, theta_starts):
+    """The twin runs on the same card, so both sides do the same float32
+    arithmetic. Where valid and R^2 >= 0.7: centers within 1e-3 px, R^2
+    within 1e-4, RMSE within 1e-4 relative, the model image within 1e-3 x
+    the patch max (float32 LM; the accept/reject test flips on ulp-level
+    differences near convergence)."""
+    x = _planted(3, 128, 128, seed=7)
+    hs, ws, valid, _ = find_candidates_batch(x, max_candidates=256)
+    args = (x.to(dev), hs.to(dev), ws.to(dev), 20, theta_starts)
+    before = fit_quality.launches
+    got = [a.cpu() for a in fit_quality(*args)]
+    torch.cuda.synchronize()
+    assert fit_quality.launches == before + 1
+    ref = [a.cpu() for a in fit_quality_plain(*args)]
+    assert [g.shape for g in got] == [r.shape for r in ref]
+    m = (valid & (ref[4] >= 0.7)).numpy()
+    assert m.sum() > 50
+    for i, tol in ((1, 1e-3), (2, 1e-3), (4, 1e-4)):
+        np.testing.assert_allclose(got[i].numpy()[m], ref[i].numpy()[m],
+                                   atol=tol)
+    np.testing.assert_allclose(got[3].numpy()[m], ref[3].numpy()[m],
+                               rtol=1e-4)
+    np.testing.assert_allclose(got[5].numpy()[valid.numpy()],
+                               ref[5].numpy()[valid.numpy()], rtol=1e-4)
+    mg = gauss2d_image(got[0][m].double(), dtype=torch.float64)
+    mr = gauss2d_image(ref[0][m].double(), dtype=torch.float64)
+    pmax = gather_patches(x, hs, ws).abs().amax(dim=(-2, -1))[m]
+    assert bool(((mg - mr).abs().amax(dim=(-2, -1)) <= 1e-3 * pmax).all())
+
+
+def test_kernel_b_rejects_what_it_does_not_take(dev):
+    x = torch.zeros((2, 32, 32), device=dev)
+    hs = torch.full((2, 4), 5, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        fit_quality(x.double(), hs, hs, 5)
+    with pytest.raises(TypeError, match="int32"):
+        fit_quality(x, hs.long(), hs, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        fit_quality(x.transpose(1, 2), hs, hs, 5)
+    with pytest.raises(ValueError, match="share a device"):
+        fit_quality(x, hs.cpu(), hs.cpu(), 5)
+    with pytest.raises(ValueError, match=r"\(B, K\)"):
+        fit_quality(x, hs[:1], hs[:1], 5)
+
+
+def test_pipeline_on_the_card_runs_both_kernels_and_agrees_with_cpu(dev):
+    stack, _ = make_stack(2, 2, 128, 128, spots_per_field=20, seed=11)
+    cfg = PipelineConfig(detect=DetectConfig(max_candidates=128,
+                                             num_iters=20))
+    a0, b0 = candidate_map_fused.launches, fit_quality.launches
+    gpu = Pipeline(cfg, device=dev).run_stack(stack.astype(np.uint16))
+    assert candidate_map_fused.launches > a0 and fit_quality.launches > b0
+    cpu = Pipeline(cfg, device="cpu").run_stack(stack.astype(np.uint16))
+    for k in cpu:
+        assert gpu[k].shape == cpu[k].shape and gpu[k].dtype == cpu[k].dtype
+    np.testing.assert_array_equal(gpu["offsets_h"], cpu["offsets_h"])
+    np.testing.assert_array_equal(gpu["cand_count"], cpu["cand_count"])

@@ -1,0 +1,186 @@
+"""The port stands alone: no jax, no JAX package, one set of config
+defaults, and a kernel build that never falls back."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from fluorosequencingimageanalysis_tpu import config as jax_config
+
+import fluorosequencingimageanalysis_torch as port
+from fluorosequencingimageanalysis_torch import _build
+from fluorosequencingimageanalysis_torch import config as port_config
+
+torch.set_num_threads(1)  # tier-1 runs several xdist workers per host
+
+PORT_DIR = os.path.dirname(os.path.abspath(port.__file__))
+REPO = os.path.dirname(PORT_DIR)
+MODULES = [
+    "fluorosequencingimageanalysis_torch",
+    "fluorosequencingimageanalysis_torch.api",
+    "fluorosequencingimageanalysis_torch.config",
+    "fluorosequencingimageanalysis_torch._build",
+    "fluorosequencingimageanalysis_torch.models.detect",
+    "fluorosequencingimageanalysis_torch.parallel.mesh",
+    "fluorosequencingimageanalysis_torch.ops.fused_candidates",
+    "fluorosequencingimageanalysis_torch.ops.fused_fit",
+    "fluorosequencingimageanalysis_torch.ops.photometry",
+    "fluorosequencingimageanalysis_torch.ops.registration",
+    "fluorosequencingimageanalysis_torch.utils.convert",
+    "fluorosequencingimageanalysis_torch.utils.synth",
+]
+
+
+def test_port_imports_and_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from fluorosequencingimageanalysis_torch.api import Pipeline\n"
+        "from fluorosequencingimageanalysis_torch.config import (\n"
+        "    DetectConfig, PipelineConfig)\n"
+        "from fluorosequencingimageanalysis_torch.utils.synth import "
+        "make_stack\n"
+        "stack, _ = make_stack(1, 2, 48, 48, spots_per_field=3)\n"
+        "cfg = PipelineConfig(detect=DetectConfig(max_candidates=16,\n"
+        "                                         num_iters=3))\n"
+        "out = Pipeline(cfg, device='cpu').run_stack(stack)\n"
+        "assert out['keep'].shape == (1, 2, 16)\n"
+        "bad = sorted(m for m in sys.modules if m.startswith(\n"
+        "    ('jax', 'fluorosequencingimageanalysis_tpu'))\n"
+        "    and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    seen = 0
+    for root, dirs, files in os.walk(PORT_DIR):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs only
+        for f in files:
+            if f.endswith(".py"):
+                seen += 1
+                for name in _imported_names(os.path.join(root, f)):
+                    assert not name.split(".")[0] in (
+                        "jax", "jaxlib", "fluorosequencingimageanalysis_tpu"
+                    ), (f, name)
+    assert seen >= 15
+    for name in _imported_names(os.path.join(REPO, "chip_smoke.py")):
+        assert name.split(".")[0] not in (
+            "jax", "fluorosequencingimageanalysis_tpu"), name
+
+
+def test_config_is_the_jax_packages_config():
+    """The port keeps its own copy of config.py (so it never imports the
+    JAX package); it must define the same classes, fields and defaults."""
+    names = ["DetectConfig", "RegistrationConfig", "PhotometryConfig",
+             "StepfitConfig", "LognormalConfig", "PipelineConfig"]
+    for n in names:
+        a, b = getattr(port_config, n), getattr(jax_config, n)
+        fa = [(f.name, str(f.type)) for f in dataclasses.fields(a)]
+        fb = [(f.name, str(f.type)) for f in dataclasses.fields(b)]
+        assert fa == fb, n
+        if n != "PipelineConfig":
+            assert dataclasses.asdict(a()) == dataclasses.asdict(b()), n
+            assert a.__dataclass_params__.frozen
+    assert port_config.PipelineConfig().asdict() == \
+        jax_config.PipelineConfig().asdict()
+    cli = "{'c_std': 3, 'r_2_threshold': 0.5}"
+    assert dataclasses.asdict(port_config.DetectConfig.from_cli(cli)) == \
+        dataclasses.asdict(jax_config.DetectConfig.from_cli(cli))
+    with pytest.raises(ValueError, match="unknown"):
+        port_config.DetectConfig.from_cli("{'nope': 1}")
+
+
+def test_tf32_is_pinned_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_require_cuda_raises_without_a_card(monkeypatch):
+    from fluorosequencingimageanalysis_torch import _device
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _device.require_cuda()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Pipeline(device="cuda")
+    assert _device.resolve_device("cpu") == torch.device("cpu")
+
+
+def _fake_tree(tmp_path, monkeypatch, nvcc_body):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + nvcc_body)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    return csrc
+
+
+def test_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    _fake_tree(tmp_path, monkeypatch,
+               'echo "error: no such intrinsic" >&2\nexit 2\n')
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        _build.build("k")
+    left = os.listdir(tmp_path / "_build")
+    assert left == []  # nothing half-written is left behind
+
+
+def test_build_is_keyed_by_source_and_atomic(tmp_path, monkeypatch):
+    log = tmp_path / "calls"
+    csrc = _fake_tree(
+        tmp_path, monkeypatch,
+        f'echo call >> "{log}"\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo built > "$2"\n')
+    so = _build.build("k")
+    assert so == _build.library_path("k") and os.path.exists(so)
+    assert so.endswith(".so") and _build.NVCC_FLAGS[1].endswith("sm_90a")
+    assert "--use_fast_math" not in _build.flags("fit_quality")
+    assert "-fmad=false" in _build.flags("fit_quality")
+    assert _build.build("k") == so  # cached: no second compile
+    assert log.read_text().count("call") == 1
+    (csrc / "k.cu").write_text("// kernel, edited\n")
+    assert _build.library_path("k") != so
+    _build.build("k")
+    assert log.read_text().count("call") == 2
+    assert not [f for f in os.listdir(tmp_path / "_build")
+                if f.endswith(".tmp")]
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    real_isfile = os.path.isfile
+    monkeypatch.setattr(
+        _build.os.path, "isfile",
+        lambda p: False if p.endswith("nvcc") else real_isfile(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
