@@ -2,18 +2,24 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` into ``_build/<name>-<hash>.so`` inside this package (git-ignored),
-where the hash covers the source and the compiler flags, then loaded with
-ctypes. The library is written to a per-process temporary file and moved
-into place with ``os.replace``, so concurrent first uses never load a torn
-file. There is no fallback: a missing ``nvcc`` or a compiler error raises
-with the compiler's output.
+where the hash covers the source, the shared headers (``csrc/*.cuh``) and
+the compiler flags, then loaded with ctypes. ptxas's report of each build
+(registers, shared memory, spills) is kept beside it as
+``_build/<name>-<hash>.ptxas.txt``; ``ptxas_info`` reads it. The library
+is written to a per-process temporary file and moved into place with
+``os.replace``, so concurrent first uses never load a torn file. There is
+no fallback: a missing ``nvcc`` or a compiler error raises with the
+compiler's output.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +30,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 
 # No --use_fast_math: parity depends on IEEE expf, division and denormals.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Per-kernel additions. fit_quality: -fmad=false rounds every product on
 # its own, as the plain twin's one-op-per-launch arithmetic does, so the
 # LM kernel matches its twin bit for bit (see ops/lm.py::_row_sum).
@@ -61,9 +67,18 @@ def flags(name: str) -> tuple:
 
 def library_path(name: str) -> str:
     """Where the build of ``csrc/<name>.cu`` lives, keyed by content."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags(name)).encode())
+    digest = hashlib.sha256()
+    for path in [os.path.join(CSRC, name + ".cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(flags(name)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def ptxas_path(name: str) -> str:
+    """Where ptxas's report of the build of ``csrc/<name>.cu`` is kept."""
+    return library_path(name)[:-len(".so")] + ".ptxas.txt"
 
 
 def build(name: str) -> str:
@@ -83,8 +98,33 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stderr}"
                            f"{proc.stdout}")
+    report = ptxas_path(name)
+    with open(f"{report}.{os.getpid()}.tmp", "w") as f:
+        f.write(proc.stderr + proc.stdout)
+    os.replace(f"{report}.{os.getpid()}.tmp", report)
     os.replace(tmp, so)
     return so
+
+
+def build_all(names) -> list:
+    """Build several sources at once, one nvcc process each; returns their
+    library paths."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
+
+
+def ptxas_info(name: str) -> dict:
+    """Registers (the most any kernel of the file uses) and spill bytes
+    (stores plus loads, over its kernels) from the kept ptxas report of
+    the current build of ``csrc/<name>.cu``."""
+    with open(ptxas_path(name)) as f:
+        text = f.read()
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+    if not regs:
+        raise RuntimeError(f"no register count in {ptxas_path(name)}")
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", text)
+    return {"registers": max(regs), "spill_bytes": sum(map(int, spills))}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,33 +8,45 @@
 //   mf  = x - min(med, x), taken as 0 outside the image,
 //   cm  = max(sum_{a,b} t[a][b] * mf[y + a - 2][x + b - 2], 0).
 //
-// What bounds it on an H100: not memory. Each pixel is read about 1.6 times
-// (tile plus halo) and written once, 8 bytes of device traffic, but costs
-// ~600 min/max operations for the median and 25 FMAs for the taps, so the
-// kernel is bound by the SM's ALU issue rate. The design keeps everything
-// out of device memory except one read and one write: one block per 32x32
-// output tile stages its input plus a 4-pixel halo (2 for the median, 2
-// for the correlation) in shared memory, computing the reflected indices
-// while loading; each thread then takes the median of its 25 neighbours
-// in registers with a fully unrolled odd-even transposition network and
-// writes mf into a second shared tile (36x36, zeros outside the image);
-// the 25 taps then read that tile. The template is a kernel argument
-// (25 floats), so any 5x5 template works without recompiling.
-// Measured on an NVIDIA H100 80GB HBM3 (700 W limit): 0.41 ms for
-// 32x512x512 (~15 G min/max per second, near the SM issue rate for them),
-// against 12.5 ms for the plain twin; 40 registers, no spills.
-// Later work: a shorter median-selection network and sharing sorted
-// columns between neighbouring pixels.
+// What bounds it on an H100: the SM's min/max issue rate, not memory. Each
+// pixel is read and written once (8 bytes; 67 MB for 32x512x512, 20 us at
+// 3.35 TB/s), but its median costs a comparator network and its
+// correlation 25 FMAs. Sorting all 25 values would take 300 exchanges (600
+// min/max); the median needs far fewer.
+//
+// The design: (1) median25.cuh's selection network, 174 min/max, and exact
+// like a sort; (2) 64x64 output tiles, so the median runs on 68x68 pixels
+// per 4096 outputs (1.13x, against 1.27x for 32x32 tiles); (3) 578
+// threads, so the 4624 medians of a tile take exactly 8 rounds, and the
+// 4096 outputs exactly 8 rounds of 512 threads (the other 66 have
+// finished): no round runs mostly idle. One block stages its input plus a
+// 4-pixel halo (2 for the median, 2 for the correlation) in shared memory,
+// computing the reflected indices while loading; each thread then takes
+// medians in registers and writes mf into a second shared tile (zeros
+// outside the image), which the 25 taps read. The template is a kernel
+// argument (25 floats), so any 5x5 template works without recompiling.
+// The tap loop keeps FMA contraction and its order: with it the output is
+// bitwise equal to the plain twin's.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W limit), 32x512x512: 0.22 ms,
+// 13% of the 0.028 ms bound counted at the FMA rate; 40 registers, no
+// spills. Float32 min/max issue at half that rate on sm_90, so the 174
+// min/max per pixel alone need ~0.1 ms: fewer of them (work shared between
+// neighbouring windows) is the next lever. PERF.md section 6 has the runs.
 
 #include <cuda_runtime.h>
 
+#include "median25.cuh"
+
 namespace {
 
-constexpr int TILE = 32;
+constexpr int TILE = 64;
 constexpr int HALO = 4;                  // 2 (median) + 2 (correlation)
-constexpr int IN_T = TILE + 2 * HALO;    // 40: staged input rows/cols
-constexpr int MF_T = TILE + 4;           // 36: mf rows/cols feeding taps
-constexpr int THREADS = 256;
+constexpr int IN_T = TILE + 2 * HALO;    // 72: staged input rows/cols
+constexpr int MF_T = TILE + 4;           // 68: mf rows/cols feeding taps
+constexpr int THREADS = MF_T * MF_T / 8;  // 578: 8 median rounds each
+constexpr int TAP_THREADS = 512;         // 8 output rounds each
+static_assert(MF_T * MF_T == 8 * THREADS, "median rounds must be full");
+static_assert(TILE * TILE == 8 * TAP_THREADS, "output rounds must be full");
 
 struct Taps {
   float w[25];
@@ -46,22 +58,6 @@ __device__ __forceinline__ int reflect(int i, int n) {
   i %= period;
   if (i < 0) i += period;
   return i < n ? i : period - 1 - i;
-}
-
-__device__ __forceinline__ void cswap(float& a, float& b) {
-  const float lo = fminf(a, b);
-  const float hi = fmaxf(a, b);
-  a = lo;
-  b = hi;
-}
-
-__device__ __forceinline__ float median25(float v[25]) {
-#pragma unroll
-  for (int rnd = 0; rnd < 25; ++rnd) {
-#pragma unroll
-    for (int i = rnd & 1; i < 24; i += 2) cswap(v[i], v[i + 1]);
-  }
-  return v[12];
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -76,7 +72,7 @@ candidate_map_kernel(const float* __restrict__ img, float* __restrict__ out,
   const float* src = img + static_cast<size_t>(b) * H * W;
   const int tid = threadIdx.x;
 
-  // Input rows/cols y0-4 .. y0+35 with symmetric reflection.
+  // Input rows/cols y0-4 .. y0+67 with symmetric reflection.
   for (int k = tid; k < IN_T * IN_T; k += THREADS) {
     const int r = k / IN_T;
     const int c = k % IN_T;
@@ -86,7 +82,8 @@ candidate_map_kernel(const float* __restrict__ img, float* __restrict__ out,
   }
   __syncthreads();
 
-  // mf at rows/cols y0-2 .. y0+33; s_mf[r][c] is centred on s_in[r+2][c+2].
+  // mf at rows/cols y0-2 .. y0+65; s_mf[r][c] is centred on s_in[r+2][c+2].
+#pragma unroll 1
   for (int k = tid; k < MF_T * MF_T; k += THREADS) {
     const int r = k / MF_T;
     const int c = k % MF_T;
@@ -100,14 +97,15 @@ candidate_map_kernel(const float* __restrict__ img, float* __restrict__ out,
 #pragma unroll
         for (int j = 0; j < 5; ++j) v[i * 5 + j] = s_in[r + i][c + j];
       }
-      const float x = s_in[r + 2][c + 2];
-      mf = x - fminf(median25(v), x);
+      const float x = v[12];
+      mf = x - fminf(median25::select<median25::FloatMinMax>(v), x);
     }
     s_mf[r][c] = mf;
   }
   __syncthreads();
+  if (tid >= TAP_THREADS) return;
 
-  for (int k = tid; k < TILE * TILE; k += THREADS) {
+  for (int k = tid; k < TILE * TILE; k += TAP_THREADS) {
     const int r = k / TILE;
     const int c = k % TILE;
     const int gy = y0 + r;

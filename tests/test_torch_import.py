@@ -184,3 +184,35 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         lambda p: False if p.endswith("nvcc") else real_isfile(p))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def test_build_keeps_ptxas_report_and_hashes_headers(tmp_path, monkeypatch):
+    csrc = _fake_tree(
+        tmp_path, monkeypatch,
+        'echo "ptxas info    : Used 96 registers, used 1 barriers" >&2\n'
+        'echo "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill'
+        ' loads" >&2\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo built > "$2"\n')
+    flags = _build.flags("k")
+    assert flags[flags.index("-Xptxas") + 1] == "-v"
+    so = _build.build("k")
+    assert _build.ptxas_path("k") == so[:-len(".so")] + ".ptxas.txt"
+    assert _build.ptxas_info("k") == {"registers": 96, "spill_bytes": 12}
+    (csrc / "shared.cuh").write_text("// header\n")
+    assert _build.library_path("k") != so  # a header edit rebuilds
+    (csrc / "k2.cu").write_text("// another kernel\n")
+    built = _build.build_all(["k", "k2"])
+    assert built == [_build.library_path("k"), _build.library_path("k2")]
+    assert all(os.path.exists(p) for p in built)
+    assert not [f for f in os.listdir(tmp_path / "_build")
+                if f.endswith(".tmp")]
+
+
+def test_ptxas_info_raises_without_a_register_count(tmp_path, monkeypatch):
+    _fake_tree(tmp_path, monkeypatch,
+               'while [ "$1" != "-o" ]; do shift; done\n'
+               'echo built > "$2"\n')
+    _build.build("k")
+    with pytest.raises(RuntimeError, match="no register count"):
+        _build.ptxas_info("k")
