@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py              # every check, the step's timing
-    python3 chip_smoke.py --profile    # also a torch.profiler trace of it
+    python3 chip_smoke.py              # every check, the timings
+    python3 chip_smoke.py --profile    # also profiler traces of both paths
 
 Builds the hand-written kernels from csrc/ (nvcc, sm_90a, one process per
 source, all at once) and reads ptxas's registers and spills for each,
@@ -14,19 +14,31 @@ headline stack (8 fields x 4 cycles of 512x512, ~200 planted spots per
 field, max_candidates=2048, num_iters=40, upsample_factor=20, mexican-hat
 photometry) and checks its output, compares the card with the CPU on a
 reduced stack, and times the step and its split into upload, device step
-and download; ``--profile`` adds the device's busy share and its largest
-operations over three steps. Prints one JSON line per phase, then
-the nvidia-smi name/power-limit line, the kernel summary and, last,
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
-code is non-zero; so is a process that sees no CUDA device. Imports no jax.
+and download. Then the full experiment, config 4 (32 fields x 8 cycles of
+512x512 uint16, ~2,000 spots per field with dropouts and stage drift,
+max_candidates=4096, max_spots=3072, every other setting the config's
+default), through ``Pipeline(device="cuda").run_experiment``: fields/s,
+its stages, the overlap of the step with host tracking, peak memory, the
+kernels' launches per run and both kernels against their twins at that
+path's shapes, the recovery of planted spots, both CSVs, and the card
+against the CPU on a reduced stack. ``--profile`` adds the device's busy
+share and its largest operations over three headline steps and over one
+run_experiment, and a cProfile of one group's host half. Prints one
+JSON line per phase, then the nvidia-smi name/power-limit line, the
+kernel summary and, last, ``{"ok": true, "device": {...}}``. Any failed
+check raises, so the exit code is non-zero; so is a process that sees no
+CUDA device. Imports no jax.
 """
 
 import argparse
 import collections
+import csv
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +49,17 @@ MAX_CANDIDATES, NUM_ITERS, UPSAMPLE = 2048, 40, 20
 B_CENTER, B_R2, B_RMSE_REL, B_MODEL = 1e-3, 1e-4, 1e-4, 1e-3
 SWEEP = [(48, 100), (33, 257), (70, 130), (96, 384)]
 KERNELS = ("candidate_map", "fit_quality")
+# Config 4 (bench.py's experiment workload): fields, cycles, candidate and
+# spot buckets, timed runs after one warm-up.
+EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
+# Card against CPU on a reduced experiment: 2 fields x 8 cycles of 256x256
+# at config 4's spot density.
+EXP_SMALL = dict(F=2, C=8, H=256, W=256, spots_per_field=500, seed=1)
+EXP_SMALL_K = 1024
+# Photometry of the card against the CPU: float32 sums of ~2e4 in another
+# order differ by a few ulp (2e-3 each), which a value near 0 cannot absorb
+# relatively.
+PHOT_RTOL, PHOT_ATOL = 1e-4, 5e-2
 
 # Published peaks of one H100 SXM at its 700 W limit: float32 outside the
 # tensor cores (an FMA counts 2) and HBM3 bandwidth.
@@ -150,6 +173,66 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_b_report(imgs, hs, ws, valid, num_iters, ts, reps, plain_reps):
+    """Kernel B against its twin on (B, K) candidates of ``imgs``: the
+    parameters bit for bit and the other outputs within their tolerances
+    (raises otherwise), then both timed. Returns the statistics."""
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        gather_patches)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality, fit_quality_plain)
+    from fluorosequencingimageanalysis_torch.ops.gaussian import (
+        gauss2d_image)
+
+    patch_max = gather_patches(imgs, hs, ws).abs().amax(dim=(-2, -1))
+    got = fit_quality(imgs, hs, ws, num_iters, ts)
+    ref = fit_quality_plain(imgs, hs, ws, num_iters, ts)
+    torch.cuda.synchronize()
+    m = valid & (ref[4] >= 0.7)
+    dc = torch.maximum((got[1] - ref[1]).abs(), (got[2] - ref[2]).abs())
+    dr2 = (got[4] - ref[4]).abs()
+    drm = (got[3] - ref[3]).abs() / ref[3].abs()
+    dm = (gauss2d_image(got[0][m].double(), dtype=torch.float64) -
+          gauss2d_image(ref[0][m].double(), dtype=torch.float64)
+          ).abs().amax(dim=(-2, -1))
+    rel_m = dm / patch_max[m].double()
+    stats = {"fits": int(hs.numel()), "compared": int(m.sum()),
+             "params_bitwise_equal": float(
+                 (got[0] == ref[0]).all(dim=-1).float().mean()),
+             "max_center_err": float(dc[m].max()),
+             "max_r2_err": float(dr2[m].max()),
+             "max_rmse_err_rel": float(drm[m].max()),
+             "max_model_err_rel": float(rel_m.max()),
+             # Over params, centers, RMSE, R^2 and S/N of those fits.
+             "max_abs_err_all_outputs": max(
+                 float((g[m] - r[m]).abs().max()) for g, r in
+                 zip(got, ref)),
+             "over_center_tol": int((dc[m] > B_CENTER).sum()),
+             "over_r2_tol": int((dr2[m] > B_R2).sum()),
+             "over_rmse_tol": int((drm[m] > B_RMSE_REL).sum()),
+             "over_model_tol": int((rel_m > B_MODEL).sum())}
+    check(stats["params_bitwise_equal"] == 1.0 and
+          stats["over_center_tol"] == 0 and stats["over_r2_tol"] == 0
+          and stats["over_rmse_tol"] == 0 and stats["over_model_tol"] == 0,
+          f"kernel B vs twin at {tuple(hs.shape)}, theta_starts={ts}, "
+          f"{num_iters} iterations: {stats}")
+    del got, ref
+    ms = time_ms(lambda: fit_quality(imgs, hs, ws, num_iters, ts), reps)
+    plain = time_ms(lambda: fit_quality_plain(imgs, hs, ws, num_iters, ts),
+                    plain_reps)
+    # Per fit: its 25 pixels and 2 coordinates in, 12 floats out.
+    fits = hs.numel()
+    b_bound, b_by = bound(
+        fits * (25 * 4 + 2 * 4 + 12 * 4),
+        fits * min(ts, 2) * num_iters *
+        (25 * B_FLOPS_PER_PIXEL_ITER + B_FLOPS_SOLVE))
+    b_med = statistics.median(ms)
+    return dict(stats, ms_median=b_med,
+                plain_ms_median=statistics.median(plain), bound_ms=b_bound,
+                bound_by=b_by, share_of_bound=b_bound / b_med, ms_runs=ms,
+                plain_ms_runs=plain)
+
+
 def nvidia_smi_line():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -167,10 +250,281 @@ def planted(h, w, seed):
     return img
 
 
+def experiment_phase(tmpl, dev, profile_host=False):
+    """Config 4 through ``Pipeline(device="cuda").run_experiment``: one
+    warm-up and EXP_REPS timed runs (launch counts set to 0 before each
+    and read after), the CSVs, the recovery of planted spots, both kernels
+    against their twins at this path's shapes, the device time of one
+    group's step and its stages, and the card against the CPU on a
+    reduced stack. Emits the "experiment" line (and, with
+    ``profile_host``, the "experiment_host_profile" line and the
+    device's busy share over one run); returns the
+    kernels' launches per run and their numbers at this path's shapes."""
+    from fluorosequencingimageanalysis_torch.api import (GROUP_FIELDS,
+                                                         Pipeline)
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        _threshold_and_extract_batch)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused, candidate_map_plain)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.ops.photometry import (
+        mexican_hat_batch)
+    from fluorosequencingimageanalysis_torch.ops.registration import (
+        phase_correlate_stack)
+    from fluorosequencingimageanalysis_torch.parallel.mesh import (
+        experiment_step)
+    from fluorosequencingimageanalysis_torch.pipeline.fast_experiment import (
+        gather_windows, photometry_ops)
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        experiment_recovery, make_experiment_stack)
+
+    t = time.perf_counter()
+    stack, pos, present, drift = make_experiment_stack(EXP_F, EXP_C,
+                                                       return_truth=True)
+    stack = np.clip(stack, 0, 65535).astype(np.uint16)
+    synth_s = time.perf_counter() - t
+    H, W = stack.shape[2:]
+    pipe = Pipeline(device=dev, profile=True)
+    kw = dict(max_candidates=EXP_K, max_spots=EXP_S)
+    n_iters = pipe.config.detect.num_iters
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = dict(csv_path=os.path.join(tmp, "tracks.csv"),
+                     category_csv_path=os.path.join(tmp, "categories.csv"))
+        t = time.perf_counter()
+        pipe.run_experiment(stack, **paths, **kw)
+        warm_s = time.perf_counter() - t
+        for _ in range(EXP_REPS):
+            profiling.reset_timings()
+            profiling.reset_counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            candidate_map_fused.launches = 0
+            fit_quality.launches = 0
+            t = time.perf_counter()
+            res = pipe.run_experiment(stack, **paths, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {"candidate_map": candidate_map_fused.launches,
+                        "fit_quality": fit_quality.launches}
+            st = {k: v["total"] for k, v in profiling.timings().items()}
+            runs.append({
+                "wall_s": wall, "launches": launches,
+                "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+                "stages_s": st, "counters": profiling.counters(),
+                "overlap_s": (st["api/run_stack"] +
+                              st["api/run_experiment/track+photometry"] -
+                              st["api/run_experiment/groups"])})
+        n_groups = -(-EXP_F // GROUP_FIELDS)
+        for r in runs:
+            check(r["launches"] == {"candidate_map": n_groups,
+                                    "fit_quality": n_groups},
+                  f"each group's step launched both kernels once: "
+                  f"{r['launches']}")
+        rows = res["rows"]
+        check(len(rows) > 0, "run_experiment returned rows")
+        check(all(np.isfinite(np.asarray(r[5], np.float64)).all()
+                  for r in rows), "every row's photometry is finite")
+        with open(paths["csv_path"], newline="") as fh:
+            table = list(csv.reader(fh))
+        check(table[0] == ["CHANNEL", "FIELD", "H", "W", "CATEGORY"] +
+              [f"FRAME {i}" for i in range(EXP_C)] and
+              len(table) == len(rows) + 1 and
+              all(len(t) == 5 + EXP_C for t in table[1:]),
+              "the track CSV parses with the track-rows header")
+        with open(paths["category_csv_path"], newline="") as fh:
+            cats = list(csv.reader(fh))
+        check(cats[0] == ["Pattern", "Channel", "Count"] and
+              sum(int(c[2]) for c in cats[1:]) ==
+              sum(n for by_f in res["filtered_category_counts"].values()
+                  for d in by_f.values() for n in d.values()),
+              "the category CSV parses and sums to the filtered counts")
+
+    # Planted spots: those the step keeps in every cycle must come back
+    # as all-ones rows (tracking and fill-in); the raw recovery of every
+    # spot planted in every cycle is reported beside it.
+    step_out = pipe.run_stack(stack, keys=("spot_rh", "spot_rw",
+                                           "spot_state", "cand_count"),
+                              photometry_min=None, **kw)
+    rec = experiment_recovery(rows, step_out, pos, present, drift)
+    check(rec["recovered_of_detected"] >= 0.90,
+          f"spots kept in every cycle come back as all-ones rows: {rec}")
+
+    # Both kernels against their twins at one group's shapes, and the
+    # device time of that group's step and of its stages.
+    g0 = torch.from_numpy(stack[:GROUP_FIELDS]).to(dev)
+    imgs = g0.reshape(-1, H, W).to(torch.float32)
+    a_shape = list(imgs.shape)
+    cm = candidate_map_fused(imgs, tmpl)
+    err_a = float((cm - candidate_map_plain(imgs, tmpl)).abs().max())
+    check(err_a == 0.0, f"kernel A vs twin at {tuple(imgs.shape)} "
+                        f"(max abs err {err_a})")
+    a_ms = time_ms(lambda: candidate_map_fused(imgs, tmpl), 10)
+    a_plain = time_ms(lambda: candidate_map_plain(imgs, tmpl), 3)
+    a_bound, a_by = bound(2 * imgs.numel() * 4,
+                          imgs.numel() * A_OPS_PER_PIXEL)
+    hs, ws, valid, _ = _threshold_and_extract_batch(cm, EXP_K, 2.0)
+    b = kernel_b_report(imgs, hs, ws, valid, n_iters, 1, reps=5,
+                        plain_reps=2)
+    step_kw = pipe._step_kwargs(EXP_K, photometry_min=None)
+    fq = fit_quality(imgs, hs, ws, n_iters, 1)
+    passed = valid & ~(fq[4] < 0.7)
+    # A group's share of the run's interpolated holes.
+    holes = max(1, sum(not p for r in rows for p in r[4]) // n_groups)
+    rng = np.random.default_rng(0)
+    hole_idx = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, imgs.shape[0], holes),
+        rng.integers(9, H - 9, holes), rng.integers(9, W - 9, holes))]
+    reduce = photometry_ops.patch_reduction("mexican_hat", 9)
+    with torch.no_grad():
+        group_ms = {
+            "step_best": 1e3 * profiling.device_time(
+                experiment_step, g0, max_spots=EXP_S, iters=3,
+                **step_kw)[0],
+            "registration": statistics.median(time_ms(
+                lambda: phase_correlate_stack(g0.to(torch.float32), 20), 3)),
+            "candidate_map_kernel": statistics.median(a_ms),
+            "extraction": statistics.median(time_ms(
+                lambda: _threshold_and_extract_batch(cm, EXP_K, 2.0), 3)),
+            "fit_quality_kernel": b["ms_median"],
+            "consolidate": statistics.median(time_ms(
+                lambda: consolidate(fq[1], fq[2], fq[4], passed, 4.0), 3)),
+            "mexican_hat_photometry": statistics.median(time_ms(
+                lambda: mexican_hat_batch(imgs, hs[:, :EXP_S].clamp(9, H - 10),
+                                          ws[:, :EXP_S].clamp(9, W - 10)),
+                3)),
+            f"hole_gather_{holes}": statistics.median(time_ms(
+                lambda: reduce(gather_windows(g0.reshape(-1, H, W),
+                                              *hole_idx, 9)), 3)),
+        }
+    del fq, passed, g0, imgs, cm
+
+    # The card against the CPU on a reduced stack.
+    small = np.clip(make_experiment_stack(**EXP_SMALL), 0,
+                    65535).astype(np.uint16)
+    on_card = Pipeline(device=dev).run_experiment(
+        small, max_candidates=EXP_SMALL_K)
+    t = time.perf_counter()
+    on_cpu = Pipeline(device="cpu").run_experiment(
+        small, max_candidates=EXP_SMALL_K)
+    cpu_s = time.perf_counter() - t
+    check(len(on_card["rows"]) == len(on_cpu["rows"]) > 0,
+          f"rows on the card and the CPU: {len(on_card['rows'])}, "
+          f"{len(on_cpu['rows'])}")
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(on_card["rows"], on_cpu["rows"])):
+        check(g[:5] == c[:5], f"row {i}: card {g[:5]}, CPU {c[:5]}")
+        gv, cv = np.asarray(g[5]), np.asarray(c[5])
+        check(np.allclose(gv, cv, rtol=PHOT_RTOL, atol=PHOT_ATOL),
+              f"row {i} photometry: card {gv}, CPU {cv}")
+        worst = max(worst, float(np.max(np.abs(gv - cv))))
+    check(on_card["category_counts"] == on_cpu["category_counts"],
+          "category counts equal on the card and the CPU")
+
+    walls = [r["wall_s"] for r in runs]
+    emit("experiment", shape=list(stack.shape), dtype=str(stack.dtype),
+         max_candidates=EXP_K, max_spots=EXP_S, num_iters=n_iters,
+         group_fields=GROUP_FIELDS, synth_s=synth_s, warmup_s=warm_s,
+         fields_per_s=EXP_F / statistics.median(walls),
+         wall_s_median=statistics.median(walls), runs=runs,
+         rows=len(rows), traces=res["summary"]["ch1"]["trace_count"],
+         summary=res["summary"]["ch1"],
+         cand_count_mean=float(step_out["cand_count"].mean()),
+         cand_overflow_images=int((step_out["cand_count"] > EXP_K).sum()),
+         recovery_1px=rec, group_device_ms=group_ms,
+         card_vs_cpu={"shape": [EXP_SMALL[k] for k in ("F", "C", "H", "W")],
+                      "max_candidates": EXP_SMALL_K,
+                      "rows": len(on_cpu["rows"]),
+                      "max_abs_phot_diff": worst, "cpu_s": cpu_s},
+         note="wall = run_experiment from a host uint16 stack to rows and "
+              "both CSVs; stages_s are host-clock stage totals; overlap_s "
+              "= run_stack + track+photometry - groups; group_device_ms "
+              "are device times of one group of GROUP_FIELDS fields "
+              "(step_best: best of 3, the others medians of 3)")
+    if profile_host:
+        host_profile(pipe, stack, kw)
+        prof = profile_steps(lambda: pipe.run_experiment(stack, **kw), 1)
+        prof["device_busy_share_of_unprofiled_run"] = (
+            prof["device_busy_us"] / 1e6 / statistics.median(walls))
+        emit("experiment_profile", **prof)
+    return {
+        "launches": runs[0]["launches"],
+        "kernels": {
+            "candidate_map": {
+                "shape": a_shape,
+                "max_abs_err": err_a, "ms": statistics.median(a_ms),
+                "plain_ms": statistics.median(a_plain), "bound_ms": a_bound,
+                "bound_by": a_by,
+                "share_of_bound": a_bound / statistics.median(a_ms)},
+            "fit_quality": {
+                "fits": b["fits"], "num_iters": n_iters,
+                "max_abs_err": b["max_abs_err_all_outputs"],
+                "ms": b["ms_median"], "plain_ms": b["plain_ms_median"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "share_of_bound": b["share_of_bound"]}}}
+
+
+def host_profile(pipe, stack, kw, top=15):
+    """cProfile of run_experiment's host half for one group, run alone on
+    this thread (no step beside it): the spot lists, linking, fill-in,
+    hole gathers and rows, then the track CSV of those rows. Emits the
+    cumulative time of each piece and the functions with the most own
+    time."""
+    import cProfile
+    import pstats
+
+    from fluorosequencingimageanalysis_torch.api import (EXPERIMENT_KEYS,
+                                                         GROUP_FIELDS)
+    from fluorosequencingimageanalysis_torch.pipeline import (
+        fast_experiment as fe)
+
+    out, grp, _ = next(pipe._stack_step_groups(
+        torch.from_numpy(stack[:GROUP_FIELDS]), EXPERIMENT_KEYS, **kw))
+    cfg = pipe.config.photometry
+    Fg, C = out["offsets_h"].shape
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    prof.enable()
+    rhs, rws, values = fe._spot_lists(out, Fg, C)
+    queue = []
+    per_field = fe.run_experiment_stack(
+        grp, out["offsets_h"], out["offsets_w"], (rhs, rws), values,
+        photometry_method=cfg.method, photometry_radius=cfg.radius,
+        photometry_brim=cfg.brim_size, hole_queue=queue)
+    fe.flush_hole_queue(queue)
+    rows = [("ch1", f, h0, w0, cat, ph)
+            for f, field_rows in enumerate(per_field)
+            for (cat, h0, w0, ph) in field_rows]
+    with tempfile.TemporaryDirectory() as tmp:
+        fe.write_track_rows_csv(rows, C, os.path.join(tmp, "t.csv"))
+    prof.disable()
+    wall = time.perf_counter() - t
+    stats = pstats.Stats(prof).stats
+    pieces = ("_spot_lists", "_link_field", "greedy_link", "_fill_traces",
+              "_lookup_spot_values", "_queue_photometry", "_rows_by_field",
+              "flush_hole_queue", "write_track_rows_csv")
+    cum = dict.fromkeys(pieces, 0.0)
+    for (_, _, fn), (_, _, _, ct, _) in stats.items():
+        if fn in cum:
+            cum[fn] += ct
+    own = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    emit("experiment_host_profile", fields=Fg, rows=len(rows),
+         wall_s_profiled=wall, cumulative_s=cum,
+         top_own_s=[[f"{fn} ({os.path.basename(file)}:{line})", tt]
+                    for (file, line, fn), (_, _, tt, _, _) in own],
+         note="cProfile adds cost to every Python call: read the shares, "
+              "not the totals")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace three steps with torch.profiler")
+                    help="also trace three steps with torch.profiler and "
+                         "profile the experiment's host half with cProfile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
@@ -180,15 +534,13 @@ def main():
         DetectConfig, PhotometryConfig, PipelineConfig, RegistrationConfig)
     from fluorosequencingimageanalysis_torch.ops.candidates import (
         DEFAULT_CORRELATION_MATRIX, _threshold_and_extract_batch,
-        find_candidates_batch, gather_patches)
+        find_candidates_batch)
     from fluorosequencingimageanalysis_torch.ops.consolidate import (
         consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused, candidate_map_plain)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
-        fit_quality, fit_quality_plain)
-    from fluorosequencingimageanalysis_torch.ops.gaussian import (
-        gauss2d_image)
+        fit_quality)
     from fluorosequencingimageanalysis_torch.ops.photometry import (
         mexican_hat_batch)
     from fluorosequencingimageanalysis_torch.ops.registration import (
@@ -202,10 +554,11 @@ def main():
     dev = torch.device("cuda")
     tmpl = DEFAULT_CORRELATION_MATRIX
 
-    # 1. Device and build: one nvcc per source, all started together.
+    # 1. Device and build: one compiler per source (nvcc for the kernels,
+    # g++ for the tracker), all started together.
     t0 = time.perf_counter()
-    _build.build_all(KERNELS)
-    for name in KERNELS:
+    _build.build_all(KERNELS + ("tracklink",))
+    for name in KERNELS + ("tracklink",):
         _build.load(name)
     build_s = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_info(name) for name in KERNELS}
@@ -246,60 +599,13 @@ def main():
     # 3. Kernel B against its twin on every candidate of the headline step.
     hs, ws, valid, _ = _threshold_and_extract_batch(cm_p, MAX_CANDIDATES,
                                                     2.0)
-    patch_max = gather_patches(imgs, hs, ws).abs().amax(dim=(-2, -1))
-    b_report = {}
-    err_b = 0.0
-    for ts in (1, 2):
-        got = fit_quality(imgs, hs, ws, NUM_ITERS, ts)
-        ref = fit_quality_plain(imgs, hs, ws, NUM_ITERS, ts)
-        torch.cuda.synchronize()
-        m = valid & (ref[4] >= 0.7)
-        dc = torch.maximum((got[1] - ref[1]).abs(), (got[2] - ref[2]).abs())
-        dr2 = (got[4] - ref[4]).abs()
-        drm = (got[3] - ref[3]).abs() / ref[3].abs()
-        dm = (gauss2d_image(got[0][m].double(), dtype=torch.float64) -
-              gauss2d_image(ref[0][m].double(), dtype=torch.float64)
-              ).abs().amax(dim=(-2, -1))
-        rel_m = dm / patch_max[m].double()
-        stats = {"fits": int(hs.numel()), "compared": int(m.sum()),
-                 "params_bitwise_equal": float(
-                     (got[0] == ref[0]).all(dim=-1).float().mean()),
-                 "max_center_err": float(dc[m].max()),
-                 "max_r2_err": float(dr2[m].max()),
-                 "max_rmse_err_rel": float(drm[m].max()),
-                 "max_model_err_rel": float(rel_m.max()),
-                 # Over params, centers, RMSE, R^2 and S/N of those fits.
-                 "max_abs_err_all_outputs": max(
-                     float((g[m] - r[m]).abs().max()) for g, r in
-                     zip(got, ref)),
-                 "over_center_tol": int((dc[m] > B_CENTER).sum()),
-                 "over_r2_tol": int((dr2[m] > B_R2).sum()),
-                 "over_rmse_tol": int((drm[m] > B_RMSE_REL).sum()),
-                 "over_model_tol": int((rel_m > B_MODEL).sum())}
-        check(stats["params_bitwise_equal"] == 1.0 and
-              stats["over_center_tol"] == 0 and stats["over_r2_tol"] == 0
-              and stats["over_rmse_tol"] == 0
-              and stats["over_model_tol"] == 0,
-              f"kernel B vs twin, theta_starts={ts}: {stats}")
-        err_b = max(err_b, stats["max_abs_err_all_outputs"])
-        ms = time_ms(lambda: fit_quality(imgs, hs, ws, NUM_ITERS, ts), 10)
-        plain = time_ms(
-            lambda: fit_quality_plain(imgs, hs, ws, NUM_ITERS, ts), 3)
-        # Per fit: its 25 pixels and 2 coordinates in, 12 floats out.
-        fits = hs.numel()
-        b_bound, b_by = bound(
-            fits * (25 * 4 + 2 * 4 + 12 * 4),
-            fits * min(ts, 2) * NUM_ITERS *
-            (25 * B_FLOPS_PER_PIXEL_ITER + B_FLOPS_SOLVE))
-        b_med = statistics.median(ms)
-        b_report[ts] = dict(stats, ms_median=b_med,
-                            plain_ms_median=statistics.median(plain),
-                            bound_ms=b_bound, bound_by=b_by,
-                            share_of_bound=b_bound / b_med,
-                            **ptxas["fit_quality"], ms_runs=ms,
-                            plain_ms_runs=plain)
+    b_report = {ts: kernel_b_report(imgs, hs, ws, valid, NUM_ITERS, ts,
+                                    reps=10, plain_reps=3)
+                for ts in (1, 2)}
+    for ts, rep in b_report.items():
         emit("kernel_b", theta_starts=ts, num_iters=NUM_ITERS,
-             **b_report[ts])
+             **rep, **ptxas["fit_quality"])
+    err_b = max(rep["max_abs_err_all_outputs"] for rep in b_report.values())
 
     # 4. The slice on the card, through the user's entry point.
     cfg = PipelineConfig(
@@ -418,7 +724,10 @@ def main():
               "outputs; stage times are device times of each stage alone; "
               "split_ms are host-clock medians of the step's parts")
 
-    # 7. Optional: where the device's time goes within run_stack.
+    # 7. The experiment path, config 4, through the user's entry point.
+    exp = experiment_phase(tmpl, dev, profile_host=args.profile)
+
+    # 8. Optional: where the device's time goes within run_stack.
     if args.profile:
         prof = profile_steps(lambda: pipe.run_stack(x_host), 3)
         prof["device_busy_ms_per_step"] = prof["device_busy_us"] / 3e3
@@ -439,7 +748,9 @@ def main():
          "launches": launches["candidate_map"], "max_abs_err": err_a,
          "ms": a_med, "plain_ms": statistics.median(a_plain_ms),
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": None,
-         "share_of_bound": a_bound / a_med, **ptxas["candidate_map"]},
+         "share_of_bound": a_bound / a_med, **ptxas["candidate_map"],
+         "launches_experiment": exp["launches"]["candidate_map"],
+         "experiment": exp["kernels"]["candidate_map"]},
         {"name": "fit_quality", "route": "cuda",
          "source": "fluorosequencingimageanalysis_torch/csrc/fit_quality.cu",
          "replaces": "fluorosequencingimageanalysis_tpu/models/"
@@ -450,7 +761,9 @@ def main():
          "bound_ms": b_report[1]["bound_ms"],
          "bound_by": b_report[1]["bound_by"], "library_ms": None,
          "share_of_bound": b_report[1]["share_of_bound"],
-         **ptxas["fit_quality"]},
+         **ptxas["fit_quality"],
+         "launches_experiment": exp["launches"]["fit_quality"],
+         "experiment": exp["kernels"]["fit_quality"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

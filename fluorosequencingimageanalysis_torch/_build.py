@@ -1,15 +1,17 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the port's native sources (csrc/) at first use.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
-``nvcc`` into ``_build/<name>-<hash>.so`` inside this package (git-ignored),
-where the hash covers the source, the shared headers (``csrc/*.cuh``) and
-the compiler flags, then loaded with ctypes. ptxas's report of each build
-(registers, shared memory, spills) is kept beside it as
-``_build/<name>-<hash>.ptxas.txt``; ``ptxas_info`` reads it. The library
-is written to a per-process temporary file and moved into place with
-``os.replace``, so concurrent first uses never load a torn file. There is
-no fallback: a missing ``nvcc`` or a compiler error raises with the
-compiler's output.
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host C++,
+the greedy tracker) exposes a plain C entry point and is compiled, by
+``nvcc`` or by the host compiler ``g++`` respectively, into
+``_build/<name>-<hash>.so`` inside this package (git-ignored), where the
+hash covers the source, for CUDA sources the shared headers
+(``csrc/*.cuh``), and the compiler flags; it is then loaded with ctypes.
+ptxas's report of each CUDA build (registers, shared memory, spills) is
+kept beside it as ``_build/<name>-<hash>.ptxas.txt``; ``ptxas_info``
+reads it. The library is written to a per-process temporary file and
+moved into place with ``os.replace``, so concurrent first uses never load
+a torn file. There is no fallback: a missing compiler or a compiler error
+raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # candidate_map keeps FMA contraction: its 25-tap sum cancels large terms,
 # and the FMA form is the one that agrees with the twin's convolution.
 KERNEL_FLAGS = {"fit_quality": ("-fmad=false",)}
+# Host C++: no -ffast-math, and -ffp-contract=off so that a*b + c rounds
+# twice on every host architecture (the tracker's distances are the
+# reference's plain sqrt(dh*dh + dw*dw)).
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -60,16 +66,39 @@ def find_nvcc() -> str:
                        "built")
 
 
+def find_cxx() -> str:
+    """Path of the host C++ compiler: $CXX, then g++ on PATH."""
+    for c in (os.environ.get("CXX"), "g++"):
+        path = shutil.which(c) if c else None
+        if path:
+            return path
+    raise RuntimeError("g++ not found (looked at $CXX and PATH); the host "
+                       "C++ sources cannot be built")
+
+
+def source(name: str) -> str:
+    """``csrc/<name>.cpp`` if it exists, else ``csrc/<name>.cu``."""
+    cpp = os.path.join(CSRC, name + ".cpp")
+    return cpp if os.path.exists(cpp) else os.path.join(CSRC, name + ".cu")
+
+
+def _is_cuda(name: str) -> bool:
+    return source(name).endswith(".cu")
+
+
 def flags(name: str) -> tuple:
-    """nvcc flags for ``csrc/<name>.cu``."""
+    """Compiler flags for ``csrc/<name>.cu`` (nvcc) or ``.cpp`` (g++)."""
+    if not _is_cuda(name):
+        return HOST_FLAGS
     return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 
 
 def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed by content."""
+    """Where the build of ``csrc/<name>`` lives, keyed by content."""
     digest = hashlib.sha256()
-    for path in [os.path.join(CSRC, name + ".cu"),
-                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+    headers = (sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+               if _is_cuda(name) else [])
+    for path in [source(name), *headers]:
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(flags(name)).encode())
@@ -82,22 +111,27 @@ def ptxas_path(name: str) -> str:
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its keyed build exists; returns
-    the library path."""
+    """Compile ``csrc/<name>.cu`` or ``.cpp`` unless its keyed build
+    exists; returns the library path."""
     so = library_path(name)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *flags(name), "-o", tmp,
-           os.path.join(CSRC, name + ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    src = source(name)
+    compiler = find_nvcc() if _is_cuda(name) else find_cxx()
+    proc = subprocess.run([compiler, *flags(name), "-o", tmp, src],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc failed to build {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}"
+        raise RuntimeError(f"{os.path.basename(compiler)} failed to build "
+                           f"{os.path.basename(src)} (exit "
+                           f"{proc.returncode}):\n{proc.stderr}"
                            f"{proc.stdout}")
+    if not _is_cuda(name):
+        os.replace(tmp, so)
+        return so
     report = ptxas_path(name)
     with open(f"{report}.{os.getpid()}.tmp", "w") as f:
         f.write(proc.stderr + proc.stdout)
@@ -107,7 +141,7 @@ def build(name: str) -> str:
 
 
 def build_all(names) -> list:
-    """Build several sources at once, one nvcc process each; returns their
+    """Build several sources at once, one compiler process each; returns their
     library paths."""
     names = list(names)
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
@@ -128,7 +162,7 @@ def ptxas_info(name: str) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>``, built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -16,10 +16,14 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist."""
+    """``device`` as a torch.device; a CUDA device must exist, and a bare
+    "cuda" names the current one (so it compares equal to the device of
+    the tensors placed there)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

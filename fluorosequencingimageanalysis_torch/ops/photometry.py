@@ -5,7 +5,8 @@ kernels): mexican hat (sum of the crown minus n_crown times the median of
 the brim; 19x19 window, 7x7 crown, 312 brim pixels by default), simple (sum
 of the square) and maximum (sum of the top-k pixels). Windows are gathered
 with ``lax.dynamic_slice`` semantics; callers keep centers ``radius`` from
-every edge.
+every edge. The ``*_host`` functions measure one numpy image at one center
+with the reference's clipped-slice semantics at the edges.
 """
 
 from __future__ import annotations
@@ -77,3 +78,35 @@ def maximum_batch(image, hs, ws, radius=5, top=1):
     """Sum of the top-k pixels in each square."""
     return patch_reduction("maximum", radius, top=top)(
         _flat_windows(image, hs, ws, radius))
+
+
+# ---------------------------------------------------------------------------
+# Host functions with the reference's edge truncation (Spot.photometry with
+# return_invalid=True): the square is clipped at the frame, and crown/brim
+# membership is taken by position within the clipped slice.
+# ---------------------------------------------------------------------------
+
+def _clipped_square(image, h, w, radius):
+    image = np.asarray(image)
+    return image[max(0, h - radius):min(image.shape[0], h + radius + 1),
+                 max(0, w - radius):min(image.shape[1], w + radius + 1)]
+
+
+def mexican_hat_host(image, h, w, brim_size=6, radius=9):
+    sl = _clipped_square(image, h, w, radius)
+    d = 2 * radius + 1
+    hh, ww = np.indices(sl.shape)
+    crown = ((brim_size <= hh) & (hh < d - brim_size) &
+             (brim_size <= ww) & (ww < d - brim_size))
+    crown_pixels = sl[crown]
+    return float(crown_pixels.sum() - crown_pixels.size *
+                 np.median(sl[~crown]))
+
+
+def simple_host(image, h, w, radius=2):
+    return float(_clipped_square(image, h, w, radius).sum())
+
+
+def maximum_host(image, h, w, radius=5, top=1):
+    r = np.sort(_clipped_square(image, h, w, radius).ravel())
+    return float(np.sum(r[-top:]))

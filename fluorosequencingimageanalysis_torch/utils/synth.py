@@ -1,9 +1,16 @@
 """Synthetic experiment stacks with planted Gaussian spots.
 
-The recipe of the repo's benchmark stack (bench.py::make_stack): background
-N(400, 8), ``spots_per_field`` spots per field at integer pixel centers at
-least 8 px from the border, amplitudes U(1500, 4000), sigma 1.3, each
-spot drawn on a 13x13 support and repeated in every cycle of its field.
+Two recipes of the repo's benchmark (bench.py):
+
+- ``make_stack`` (bench.py::make_stack, the headline step): background
+  N(400, 8), ``spots_per_field`` spots per field at integer pixel centers
+  at least 8 px from the border, amplitudes U(1500, 4000), sigma 1.3, each
+  spot drawn on a 13x13 support and repeated in every cycle of its field;
+- ``make_experiment_stack`` (bench.py::make_experiment_stack, config 4,
+  the full experiment): background N(400, 6), persistent spots at
+  subpixel centers at least 16 px from the border, amplitudes
+  U(2000, 5000), present in each later cycle with probability 0.85, and an
+  integer stage drift of -2..2 px per cycle shared by every field.
 """
 
 from __future__ import annotations
@@ -31,6 +38,45 @@ def make_stack(F, C, H=512, W=512, spots_per_field=200, seed=0):
         for c in range(C):
             stack[f, c] += field
     return stack, spots
+
+
+def make_experiment_stack(F, C, H=512, W=512, spots_per_field=2000, seed=0,
+                          return_truth=False):
+    """Multi-cycle experiment: persistent spots with per-cycle dropouts and
+    integer stage drift (the config-4 workload). Returns the [F, C, H, W]
+    float32 stack; with ``return_truth`` also the planted positions
+    [F, n, 2] (float32, in cycle 0's frame), their presence [F, n, C]
+    (bool) and the cumulative drift [C, 2] (cycle c shows a spot planted
+    at p at p - drift[c])."""
+    rng = np.random.default_rng(seed)
+    hh, ww = np.indices((H, W)).astype(np.float32)
+    drift = np.cumsum([[0, 0]] + [[int(rng.integers(-2, 3)),
+                                   int(rng.integers(-2, 3))]
+                                  for _ in range(C - 1)], axis=0)
+    stack = rng.normal(400.0, 6.0, (F, C, H, W)).astype(np.float32)
+    positions = np.zeros((F, spots_per_field, 2), np.float32)
+    presence = np.zeros((F, spots_per_field, C), bool)
+    for f in range(F):
+        pos = rng.uniform(16, H - 16, (spots_per_field, 2)).astype(np.float32)
+        amp = rng.uniform(2000, 5000, spots_per_field).astype(np.float32)
+        present = rng.random((spots_per_field, C)) < 0.85
+        present[:, 0] = True
+        positions[f], presence[f] = pos, present
+        for c in range(C):
+            hp = pos[present[:, c], 0] - drift[c, 0]
+            wp = pos[present[:, c], 1] - drift[c, 1]
+            ap = amp[present[:, c]]
+            field = np.zeros((H, W), np.float32)
+            for h, w, a in zip(hp, wp, ap):
+                lo_h, hi_h = max(0, int(h) - 6), min(H, int(h) + 7)
+                lo_w, hi_w = max(0, int(w) - 6), min(W, int(w) + 7)
+                field[lo_h:hi_h, lo_w:hi_w] += a * np.exp(
+                    -(((hh[lo_h:hi_h, lo_w:hi_w] - h) ** 2) +
+                      ((ww[lo_h:hi_h, lo_w:hi_w] - w) ** 2)) / (2 * 1.3 ** 2))
+            stack[f, c] += field
+    if return_truth:
+        return stack, positions, presence, drift
+    return stack
 
 
 def model_peaks(out):
@@ -68,3 +114,63 @@ def recall(spots, out, tol=1.0):
                   (spots[f, :, 1, None] - cols[f, c][v][None, :]) ** 2)
             found += int(np.sum(d2.min(axis=1) <= tol * tol))
     return found / float(F * C * spots.shape[1])
+
+
+def _nearest(a, b):
+    """Distance from each point of a [n, 2] to its nearest point of b."""
+    if len(b) == 0:
+        return np.full(len(a), np.inf)
+    out = np.empty(len(a))
+    for lo in range(0, len(a), 512):
+        d2 = ((a[lo:lo + 512, None, :] - b[None, :, :]) ** 2).sum(-1)
+        out[lo:lo + 512] = np.sqrt(d2.min(axis=1))
+    return out
+
+
+def experiment_recovery(rows, step_out, positions, presence, drift,
+                        tol=1.0):
+    """How much of ``make_experiment_stack``'s truth a run_experiment
+    recovers, for one channel.
+
+    Reported positions (row H/W, spot_rh/spot_rw) keep the reference's
+    ``p + h - 2.5`` half-pixel shift, so a spot planted at (r, c) is
+    reported within about a pixel of (r - 0.5, c - 0.5) in its cycle's
+    frame. ``step_out`` holds the step's spot_rh, spot_rw and spot_state
+    [F, C, S] for the same stack (run_stack). Returns:
+
+    - planted_every_cycle: spots present in every cycle;
+    - recovered: the share of those with an all-ones row within ``tol``;
+    - detected_every_cycle: those the step kept within ``tol`` in every
+      cycle (after undoing the drift);
+    - recovered_of_detected: the share of those with an all-ones row
+      within ``tol`` (what tracking and fill-in owe the detector);
+    - image_recall: the share of (planted, cycle) pairs the step kept
+      within ``tol``.
+    """
+    F, n, C = presence.shape
+    ref = positions.astype(np.float64) - 0.5
+    planted = detected = recovered = recovered_det = 0
+    pairs = pairs_hit = 0
+    for f in range(F):
+        every = presence[f].all(axis=1)
+        det_every = every.copy()
+        for c in range(C):
+            st = step_out["spot_state"][f, c] == 2
+            kept = np.stack([step_out["spot_rh"][f, c][st],
+                             step_out["spot_rw"][f, c][st]], 1)
+            near = _nearest(ref[f] - drift[c], kept.astype(np.float64)) <= tol
+            det_every &= near
+            pairs += int(presence[f][:, c].sum())
+            pairs_hit += int((near & presence[f][:, c]).sum())
+        ones = np.array([(r[2], r[3]) for r in rows
+                         if r[1] == f and all(r[4])], np.float64)
+        hit = _nearest(ref[f], ones.reshape(-1, 2)) <= tol
+        planted += int(every.sum())
+        recovered += int((hit & every).sum())
+        detected += int(det_every.sum())
+        recovered_det += int((hit & det_every).sum())
+    return {"planted_every_cycle": planted,
+            "recovered": recovered / max(planted, 1),
+            "detected_every_cycle": detected,
+            "recovered_of_detected": recovered_det / max(detected, 1),
+            "image_recall": pairs_hit / max(pairs, 1)}

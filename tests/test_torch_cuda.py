@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from fluorosequencingimageanalysis_torch import api
 from fluorosequencingimageanalysis_torch.api import Pipeline
 from fluorosequencingimageanalysis_torch.config import (DetectConfig,
                                                         PipelineConfig)
@@ -21,7 +22,10 @@ from fluorosequencingimageanalysis_torch.ops.fused_fit import (
     fit_quality, fit_quality_plain)
 from fluorosequencingimageanalysis_torch.ops.gaussian import gauss2d_image
 from fluorosequencingimageanalysis_torch.ops.candidates import gather_patches
-from fluorosequencingimageanalysis_torch.utils.synth import make_stack
+from fluorosequencingimageanalysis_torch.pipeline.fast_experiment import (
+    gather_windows)
+from fluorosequencingimageanalysis_torch.utils.synth import (
+    make_experiment_stack, make_stack)
 
 pytestmark = pytest.mark.cuda
 
@@ -153,3 +157,55 @@ def test_pipeline_on_the_card_runs_both_kernels_and_agrees_with_cpu(dev):
         assert gpu[k].shape == cpu[k].shape and gpu[k].dtype == cpu[k].dtype
     np.testing.assert_array_equal(gpu["offsets_h"], cpu["offsets_h"])
     np.testing.assert_array_equal(gpu["cand_count"], cpu["cand_count"])
+
+
+def _same_rows(a, b, exact):
+    assert len(a["rows"]) == len(b["rows"]) > 0
+    for ra, rb in zip(a["rows"], b["rows"]):
+        assert ra[:5] == rb[:5]
+        va = np.asarray(ra[5], np.float64)
+        vb = np.asarray(rb[5], np.float64)
+        if exact:
+            np.testing.assert_array_equal(va, vb)
+        else:  # float32 sums of ~2e4 in another order: a few ulp apart
+            np.testing.assert_allclose(va, vb, rtol=1e-4, atol=5e-2)
+
+
+def test_run_experiment_on_the_card_matches_cpu(dev, tmp_path, monkeypatch):
+    stack = np.clip(make_experiment_stack(2, 4, 128, 128, spots_per_field=40,
+                                          seed=2), 0, 65535).astype(np.uint16)
+    a0, b0 = candidate_map_fused.launches, fit_quality.launches
+    gpu = Pipeline(device=dev).run_experiment(
+        stack, max_candidates=256, csv_path=str(tmp_path / "g.csv"))
+    assert candidate_map_fused.launches == a0 + 1  # one group, one step
+    assert fit_quality.launches == b0 + 1
+    cpu = Pipeline(device="cpu").run_experiment(
+        stack, max_candidates=256, csv_path=str(tmp_path / "c.csv"))
+    _same_rows(gpu, cpu, exact=False)
+    assert gpu["category_counts"] == cpu["category_counts"]
+    assert gpu["summary"] == cpu["summary"]
+    for a, b in zip(gpu["offsets"]["ch1"], cpu["offsets"]["ch1"]):
+        np.testing.assert_array_equal(a, b)
+    # A stack already on the card, then groups of one field in the
+    # windowed schedule: the same rows.
+    pipe = Pipeline(device=dev)
+    _same_rows(pipe.run_experiment(torch.from_numpy(stack).to(dev),
+                                   max_candidates=256), gpu, exact=True)
+    monkeypatch.setattr(api, "GROUP_FIELDS", 1)
+    _same_rows(pipe.run_experiment(stack, max_candidates=256,
+                                   dispatch="window"), gpu, exact=True)
+    keep = dict(max_candidates=256, keep_invalid=True, mdma=True)
+    kg = pipe.run_experiment(stack, **keep)
+    kc = Pipeline(device="cpu").run_experiment(stack, **keep)
+    assert [r[:5] for r in kg["rows"]] == [r[:5] for r in kc["rows"]]
+
+
+def test_hole_gathers_on_the_card_equal_the_cpu(dev):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(0, 65536, (6, 40, 50))
+                         .astype(np.uint16))
+    idx = [torch.from_numpy(rng.integers(lo, hi, 500)) for lo, hi in
+           ((0, 6), (9, 31), (9, 41))]
+    got = gather_windows(x.to(dev), *(i.to(dev) for i in idx), 9)
+    ref = gather_windows(x, *idx, 9)
+    assert torch.equal(got.cpu(), ref)

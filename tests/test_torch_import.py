@@ -33,6 +33,12 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.ops.registration",
     "fluorosequencingimageanalysis_torch.utils.convert",
     "fluorosequencingimageanalysis_torch.utils.synth",
+    "fluorosequencingimageanalysis_torch.utils.profiling",
+    "fluorosequencingimageanalysis_torch.utils.rounding",
+    "fluorosequencingimageanalysis_torch.native.tracklink",
+    "fluorosequencingimageanalysis_torch.pipeline.experiment",
+    "fluorosequencingimageanalysis_torch.pipeline.fast_experiment",
+    "fluorosequencingimageanalysis_torch.pipeline.tracking",
 ]
 
 
@@ -54,6 +60,11 @@ def test_port_imports_and_runs_with_jax_blocked():
         "                                         num_iters=3))\n"
         "out = Pipeline(cfg, device='cpu').run_stack(stack)\n"
         "assert out['keep'].shape == (1, 2, 16)\n"
+        "from fluorosequencingimageanalysis_torch.utils.synth import (\n"
+        "    make_experiment_stack)\n"
+        "exp = make_experiment_stack(1, 3, 48, 48, spots_per_field=4)\n"
+        "res = Pipeline(cfg, device='cpu').run_experiment(exp)\n"
+        "assert res['rows'] and res['summary']['ch1']['trace_count']\n"
         "bad = sorted(m for m in sys.modules if m.startswith(\n"
         "    ('jax', 'fluorosequencingimageanalysis_tpu'))\n"
         "    and sys.modules[m] is not None)\n"
@@ -128,6 +139,9 @@ def test_require_cuda_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Pipeline(device="cuda")
     assert _device.resolve_device("cpu") == torch.device("cpu")
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        profiling.device_time(lambda: None)
 
 
 def _fake_tree(tmp_path, monkeypatch, nvcc_body):
@@ -216,3 +230,61 @@ def test_ptxas_info_raises_without_a_register_count(tmp_path, monkeypatch):
     _build.build("k")
     with pytest.raises(RuntimeError, match="no register count"):
         _build.ptxas_info("k")
+
+
+def test_tracklink_source_is_the_jax_packages():
+    """The port builds its own byte-for-byte copy of the native linker."""
+    with open(os.path.join(PORT_DIR, "csrc", "tracklink.cpp"), "rb") as f:
+        port_src = f.read()
+    with open(os.path.join(REPO, "fluorosequencingimageanalysis_tpu",
+                           "native", "tracklink.cpp"), "rb") as f:
+        assert port_src == f.read()
+
+
+def _fake_host_tree(tmp_path, monkeypatch, gxx_body):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    with open(os.path.join(PORT_DIR, "csrc", "tracklink.cpp")) as f:
+        (csrc / "tracklink.cpp").write_text(f.read())
+    gxx = tmp_path / "g++"
+    gxx.write_text("#!/bin/sh\n" + gxx_body)
+    gxx.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.delenv("CXX", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path))
+
+
+def test_failed_tracker_build_raises_without_fallback(tmp_path,
+                                                      monkeypatch):
+    from fluorosequencingimageanalysis_torch.native import tracklink
+    _fake_host_tree(tmp_path, monkeypatch,
+                    'echo "error: expected unqualified-id" >&2\nexit 1\n')
+    assert _build.flags("tracklink") == _build.HOST_FLAGS
+    assert "-ffp-contract=off" in _build.HOST_FLAGS
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed to build "
+                       "tracklink.cpp(.|\\n)*expected unqualified-id"):
+        tracklink.greedy_link([0.0], [0.0], [0, 1], (4, 4), 2)
+    assert os.listdir(tmp_path / "_build") == []
+    monkeypatch.setenv("PATH", str(tmp_path / "nowhere"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        _build.build("tracklink")
+
+
+def test_tracker_build_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
+    log = tmp_path / "calls"
+    _fake_host_tree(tmp_path, monkeypatch,
+                    f'echo "$@" >> "{log}"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\n')
+    so = _build.build("tracklink")
+    assert os.path.exists(so) and so == _build.library_path("tracklink")
+    args = log.read_text().split()
+    assert args[-1].endswith("tracklink.cpp")
+    assert all(f in args for f in ("-O3", "-shared", "-fPIC"))
+    assert _build.build("tracklink") == so  # cached: no second compile
+    assert len(log.read_text().splitlines()) == 1
+    assert not os.path.exists(_build.ptxas_path("tracklink"))
+    (tmp_path / "csrc" / "extra.cuh").write_text("// a CUDA header\n")
+    assert _build.library_path("tracklink") == so  # only .cu hash headers
