@@ -21,7 +21,16 @@ default), through ``Pipeline(device="cuda").run_experiment``: fields/s,
 its stages, the overlap of the step with host tracking, peak memory, the
 kernels' launches per run and both kernels against their twins at that
 path's shapes, the recovery of planted spots, both CSVs, and the card
-against the CPU on a reduced stack. ``--profile`` adds the device's busy
+against the CPU on a reduced stack. Then the z-stack and single-image
+front doors: the background estimator against its float64 host oracle,
+config 2 (32 frames of 512x512 uint16, 800 persistent spots on a sloped,
+breathing background, max_candidates=8192, lean fetch of 2048 slots)
+through ``Pipeline(device="cuda").run_zstack`` (frames/s, the stage
+split, peak memory, launches, lean against the full schema, planted
+recovery), the exhaustive path on 8 of those frames against the capped
+run, ``find_peptides`` and ``find_peptides_batch`` and ``run_zstack``
+against the CPU, and the ``zstack`` subcommand in a process of its own.
+``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
 run_experiment, and a cProfile of one group's host half. Prints one
 JSON line per phase, then the nvidia-smi name/power-limit line, the
@@ -56,10 +65,27 @@ EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
 # at config 4's spot density.
 EXP_SMALL = dict(F=2, C=8, H=256, W=256, spots_per_field=500, seed=1)
 EXP_SMALL_K = 1024
+# Config 2 (bench.py's z-stack workload): frames, candidate and lean spot
+# buckets, timed runs after one warm-up; frames of the exhaustive run.
+Z_T, Z_K, Z_S, Z_REPS, Z_EXH_T = 32, 8192, 2048, 3, 8
+# Card against CPU on a reduced z-stack, and the background's bound
+# against the float64 host oracle (share of the background's scale).
+Z_SMALL = dict(T=4, H=256, W=256, n_spots=200, seed=2)
+Z_SMALL_K = 2048
+BG_BOUND = 5e-5
+# A planted spot counts as isolated when no other lies within the
+# consolidation radius (4 px) plus the 1 px tolerance.
+ISOLATED_PX = 5.0
 # Photometry of the card against the CPU: float32 sums of ~2e4 in another
 # order differ by a few ulp (2e-3 each), which a value near 0 cannot absorb
 # relatively.
 PHOT_RTOL, PHOT_ATOL = 1e-4, 5e-2
+# RMSE of one fit on the card against the CPU: the two evaluate exp and the
+# LM's sums by other routines, and their centers differ by ~1e-4 px. The
+# residual of a clean spot (RMSE ~6 under an amplitude of ~3000) moves by
+# 0.5% for that, so the difference is held against the spot's amplitude as
+# well (B_RMSE_REL holds a kernel against its twin on one card).
+CARD_CPU_RMSE_REL, CARD_CPU_RMSE_OF_AMPLITUDE = 1e-3, 1e-4
 
 # Published peaks of one H100 SXM at its 700 W limit: float32 outside the
 # tensor cores (an FMA counts 2) and HBM3 bandwidth.
@@ -468,6 +494,363 @@ def experiment_phase(tmpl, dev, profile_host=False):
                 "share_of_bound": b["share_of_bound"]}}}
 
 
+def psfs_card_vs_cpu(card, cpu, what):
+    """Two psfs dicts of one image: equal keys in equal order, equal
+    sub_img, centers within B_CENTER px, R^2 within B_R2, RMSE within
+    CARD_CPU_RMSE_REL of itself or CARD_CPU_RMSE_OF_AMPLITUDE of the
+    amplitude. Returns the largest center difference."""
+    check(list(card) == list(cpu) and len(cpu) > 0,
+          f"{what}: psfs keys on the card and the CPU "
+          f"({len(card)}, {len(cpu)})")
+    worst = 0.0
+    for key, c in cpu.items():
+        g = card[key]
+        d = max(abs(g[0] - c[0]), abs(g[1] - c[1]))
+        check(d <= B_CENTER and abs(g[10] - c[10]) <= B_R2 and
+              abs(g[9] - c[9]) <= max(CARD_CPU_RMSE_REL * abs(c[9]),
+                                      CARD_CPU_RMSE_OF_AMPLITUDE * abs(c[3]))
+              and
+              np.array_equal(g[7], c[7]),
+              f"{what}: psf {key}: card {g[:2]}, {g[9:]}; CPU {c[:2]}, "
+              f"{c[9:]}")
+        worst = max(worst, d)
+    return worst
+
+
+def zstack_phases(tmpl, dev):
+    """The z-stack and single-image front doors on the card; emits the
+    "background", "zstack", "zstack_exhaustive", "find_peptides", "cli" and
+    "zstack_card_vs_cpu" lines and returns the kernels' launches on each
+    path and their numbers at these paths' shapes."""
+    from fluorosequencingimageanalysis_torch.api import GROUP_FRAMES, Pipeline
+    from fluorosequencingimageanalysis_torch.models.detect import (
+        EXHAUSTIVE_CHUNK, detect_and_fit_batch, find_peptides,
+        find_peptides_batch, pack_spot_buckets)
+    from fluorosequencingimageanalysis_torch.ops.background import (
+        stack_background, widen)
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        _threshold_and_extract_batch)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate, consolidate_host)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused, candidate_map_plain)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.pipeline.spots import (
+        _mesh_background)
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_stack, make_zstack, zstack_recall)
+
+    def reset_launches():
+        candidate_map_fused.launches = 0
+        fit_quality.launches = 0
+
+    def read_launches():
+        return {"candidate_map": candidate_map_fused.launches,
+                "fit_quality": fit_quality.launches}
+
+    t = time.perf_counter()
+    stack, pos = make_zstack(Z_T, return_truth=True)
+    synth_s = time.perf_counter() - t
+    T, H, W = stack.shape
+    g = GROUP_FRAMES
+
+    # Background: the card against the float64 host oracle and the CPU.
+    g0 = torch.from_numpy(stack[:g]).to(dev)
+    whole = torch.from_numpy(stack).to(dev)
+    with torch.no_grad():
+        bg = stack_background(g0)
+        check(bg.dtype == torch.float32 and tuple(bg.shape) == (g, H, W),
+              f"background {tuple(bg.shape)} {bg.dtype}")
+        t = time.perf_counter()
+        oracle = np.stack([_mesh_background(f, 10, 10) for f in stack[:4]])
+        oracle_s = (time.perf_counter() - t) / 4
+        scale = np.abs(oracle).max()
+        err_oracle = float(np.abs(bg[:4].cpu().numpy() - oracle).max()
+                           / scale)
+        on_cpu = stack_background(stack[:4], device="cpu").numpy()
+        err_cpu = float(np.abs(bg[:4].cpu().numpy() - on_cpu).max() / scale)
+        check(err_oracle < BG_BOUND and err_cpu < BG_BOUND,
+              f"background vs float64 oracle {err_oracle}, vs CPU {err_cpu}")
+        bg_ms = time_ms(lambda: stack_background(g0), 5)
+        bg_whole_ms = time_ms(lambda: stack_background(whole), 3)
+    emit("background", shape=[g, H, W], dtype=str(stack.dtype),
+         box_size=10, filter_size=10, max_rel_err_vs_float64_oracle=err_oracle,
+         max_rel_err_vs_cpu=err_cpu, bound=BG_BOUND,
+         ms_median=statistics.median(bg_ms), ms_runs=bg_ms,
+         ms_median_32_frames=statistics.median(bg_whole_ms),
+         host_oracle_s_per_frame=oracle_s)
+    del whole
+
+    # Config 2 through the user's entry point.
+    pipe = Pipeline(device=dev, profile=True)
+    kw = dict(max_candidates=Z_K, lean=True, max_spots=Z_S)
+    n_iters = pipe.config.detect.num_iters
+    t = time.perf_counter()
+    pipe.run_zstack(stack, **kw)
+    warm_s = time.perf_counter() - t
+    runs = []
+    for _ in range(Z_REPS):
+        profiling.reset_timings()
+        profiling.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t = time.perf_counter()
+        lean = pipe.run_zstack(stack, **kw)
+        torch.cuda.synchronize()
+        runs.append({"wall_s": time.perf_counter() - t,
+                     "launches": read_launches(),
+                     "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+                     "stage_s": profiling.timings()["api/run_zstack"]["total"],
+                     "counters": profiling.counters()})
+    n_groups = -(-T // g)
+    for r in runs:
+        check(r["launches"] == {"candidate_map": n_groups,
+                                "fit_quality": n_groups},
+              f"each group launched both kernels once: {r['launches']}")
+    full = pipe.run_zstack(stack, max_candidates=Z_K)
+    check(full["keep"].shape == (T, Z_K) and lean["keep"].shape == (T, Z_S)
+          and full["cand_count"].dtype == np.int32,
+          f"run_zstack shapes {full['keep'].shape}, {lean['keep'].shape}")
+    check(bool((lean["spot_count"] <= Z_S).all()),
+          f"spot_count <= max_spots: {lean['spot_count'].max()}")
+    for t_ in range(T):
+        first = np.nonzero(full["keep"][t_])[0]
+        n = len(first)
+        check(n == lean["spot_count"][t_] and lean["keep"][t_, :n].all()
+              and not lean["keep"][t_, n:].any(),
+              f"frame {t_}: lean keeps {lean['spot_count'][t_]}, full {n}")
+        for k in ("cand_h", "cand_w", "center_h", "center_w", "rmse", "r2",
+                  "s_n", "params"):
+            check(np.array_equal(lean[k][t_, :n], full[k][t_][first]),
+                  f"frame {t_}: lean {k} equals the full schema's kept "
+                  "slots bit for bit")
+    check(np.isfinite(lean["params"][lean["keep"]]).all() and
+          np.isfinite(lean["center_h"][lean["keep"]]).all(),
+          "kept fits are finite")
+    recall_all = zstack_recall(pos, lean)
+    near = np.array([np.sort(np.hypot(*(pos - p).T))[1] for p in pos])
+    isolated = pos[near > ISOLATED_PX]
+    recall_iso = zstack_recall(isolated, lean)
+    check(recall_iso.min() >= 0.95,
+          f"isolated planted spots within 1 px in every frame: "
+          f"{recall_iso.min()}")
+
+    # One group's stages on the device, and both kernels against their
+    # twins at the group's shapes.
+    with torch.no_grad():
+        sub = widen(g0) - stack_background(g0)
+        cm = candidate_map_fused(sub, tmpl)
+        err_a = float((cm - candidate_map_plain(sub, tmpl)).abs().max())
+        check(err_a == 0.0, f"kernel A vs twin at {tuple(sub.shape)} "
+                            f"(max abs err {err_a})")
+        a_ms = time_ms(lambda: candidate_map_fused(sub, tmpl), 10)
+        a_plain = time_ms(lambda: candidate_map_plain(sub, tmpl), 3)
+        a_bound, a_by = bound(2 * sub.numel() * 4,
+                              sub.numel() * A_OPS_PER_PIXEL)
+        hs, ws, valid, _ = _threshold_and_extract_batch(cm, Z_K, 2.0)
+        b = kernel_b_report(sub, hs, ws, valid, n_iters, 1, reps=5,
+                            plain_reps=2)
+        hs_c, ws_c, valid_c = (x[:, :EXHAUSTIVE_CHUNK].contiguous()
+                               for x in (hs, ws, valid))
+        b_chunk = kernel_b_report(sub, hs_c, ws_c, valid_c, n_iters, 1,
+                                  reps=5, plain_reps=2)
+        fq = fit_quality(sub, hs, ws, n_iters, 1)
+        passed = valid & ~(fq[4] < 0.7)
+        res = detect_and_fit_batch(sub, max_candidates=Z_K,
+                                   num_iters=n_iters)
+        packed = pack_spot_buckets(res, Z_S)
+        pinned = torch.from_numpy(stack[:g]).pin_memory()
+        group_ms = {
+            "upload_pinned_host_clock": host_ms(
+                lambda: pinned.to(dev, non_blocking=True), 5),
+            "background": statistics.median(bg_ms),
+            "subtract": statistics.median(time_ms(
+                lambda: widen(g0) - bg, 5)),
+            "candidate_map_kernel": statistics.median(a_ms),
+            "extraction": statistics.median(time_ms(
+                lambda: _threshold_and_extract_batch(cm, Z_K, 2.0), 5)),
+            "fit_quality_kernel": b["ms_median"],
+            "consolidate": statistics.median(time_ms(
+                lambda: consolidate(fq[1], fq[2], fq[4], passed, 4.0), 3)),
+            "detect_and_fit_batch": statistics.median(time_ms(
+                lambda: detect_and_fit_batch(sub, max_candidates=Z_K,
+                                             num_iters=n_iters), 3)),
+            "lean_pack": statistics.median(time_ms(
+                lambda: pack_spot_buckets(res, Z_S), 5)),
+            "lean_fetch_host_clock": host_ms(
+                lambda: [x.cpu() for x in packed], 5),
+            "full_fetch_host_clock": host_ms(
+                lambda: [x.cpu() for x in res], 5),
+        }
+    del fq, passed, res, packed, cm
+    walls = [r["wall_s"] for r in runs]
+    emit("zstack", shape=list(stack.shape), dtype=str(stack.dtype),
+         max_candidates=Z_K, max_spots=Z_S, num_iters=n_iters,
+         group_frames=g, synth_s=synth_s, warmup_s=warm_s,
+         frames_per_s=T / statistics.median(walls),
+         wall_s_median=statistics.median(walls), runs=runs,
+         kept_per_frame_mean=float(lean["spot_count"].mean()),
+         kept_per_frame_minmax=[int(lean["spot_count"].min()),
+                                int(lean["spot_count"].max())],
+         cand_count_mean=float(lean["cand_count"].mean()),
+         cand_overflow_frames=int((lean["cand_count"] > Z_K).sum()),
+         planted=len(pos), recall_1px_min=float(recall_all.min()),
+         recall_1px_mean=float(recall_all.mean()),
+         isolated_planted=len(isolated),
+         isolated_recall_1px_min=float(recall_iso.min()),
+         lean_equals_full_kept_slots=True, group_device_ms=group_ms,
+         note="wall = run_zstack from a host uint16 stack to host numpy "
+              "outputs; group_device_ms are device times (CUDA events, "
+              "medians) of one group of GROUP_FRAMES frames, each stage "
+              "alone, except the *_host_clock entries; isolated = no other "
+              "planted spot within ISOLATED_PX")
+
+    # The exhaustive path on the first frames against the capped run.
+    few = stack[:Z_EXH_T]
+    pipe.run_zstack(few, max_candidates="exhaustive")
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    exh = pipe.run_zstack(few, max_candidates="exhaustive")
+    torch.cuda.synchronize()
+    exh_s = time.perf_counter() - t
+    exh_launches = read_launches()
+    check(all(n > 0 for n in exh_launches.values()),
+          f"both kernels launched on the exhaustive path: {exh_launches}")
+    over = full["cand_count"][:Z_EXH_T] > Z_K
+    # The host NMS alone, on the fetched arrays of each frame.
+    t = time.perf_counter()
+    for t_ in range(Z_EXH_T):
+        passed_np = exh["cand_valid"][t_] & ~(exh["r2"][t_] < 0.7)
+        check(np.array_equal(
+            consolidate_host(exh["center_h"][t_], exh["center_w"][t_],
+                             exh["r2"][t_], passed_np, radius=4.0),
+            exh["keep"][t_]), f"frame {t_}: host NMS reproduces keep")
+    nms_s = (time.perf_counter() - t) / Z_EXH_T
+    same_keep = 0
+    for t_ in range(Z_EXH_T):
+        ke, kc = ({(int(h_), int(w_)) for h_, w_ in
+                   zip(o["cand_h"][t_][o["keep"][t_]],
+                       o["cand_w"][t_][o["keep"][t_]])} for o in (exh, full))
+        check(exh["cand_count"][t_] == full["cand_count"][t_],
+              f"frame {t_}: candidate counts {exh['cand_count'][t_]}, "
+              f"{full['cand_count'][t_]}")
+        if over[t_]:
+            check(kc <= ke or len(kc - ke) <= 0.02 * len(kc),
+                  f"frame {t_} overflows {Z_K}: capped keeps not in the "
+                  f"exhaustive set: {len(kc - ke)}")
+        else:
+            check(ke == kc, f"frame {t_}: exhaustive keep set differs from "
+                            f"the capped run's ({len(ke ^ kc)} fits)")
+            same_keep += 1
+    emit("zstack_exhaustive", frames=Z_EXH_T, chunk=EXHAUSTIVE_CHUNK,
+         K=int(exh["keep"].shape[1]), wall_s=exh_s, launches=exh_launches,
+         chunks_per_group=int(exh["keep"].shape[1]) // EXHAUSTIVE_CHUNK,
+         nms_host_s_per_frame=nms_s,
+         cand_count=exh["cand_count"].tolist(),
+         frames_over_capped_bucket=int(over.sum()),
+         frames_with_equal_keep_sets=same_keep,
+         kept_per_frame=exh["keep"].sum(axis=1).tolist())
+    del sub, g0
+
+    # find_peptides and find_peptides_batch: the card against the CPU.
+    fields, _ = make_stack(2, 1, HW, HW, seed=3)
+    fields = fields[:, 0]
+    reset_launches()
+    t = time.perf_counter()
+    card = find_peptides(fields[0])
+    fp_s = time.perf_counter() - t
+    card_b = find_peptides_batch(fields)
+    fp_launches = read_launches()
+    check(all(n > 0 for n in fp_launches.values()),
+          f"both kernels launched under find_peptides: {fp_launches}")
+    t = time.perf_counter()
+    cpu = find_peptides(fields[0], device="cpu")
+    fp_cpu_s = time.perf_counter() - t
+    cpu_b = find_peptides_batch(fields, device="cpu")
+    worst = psfs_card_vs_cpu(card, cpu, "find_peptides")
+    for i in range(2):
+        worst = max(worst, psfs_card_vs_cpu(card_b[i], cpu_b[i],
+                                            f"find_peptides_batch[{i}]"))
+    check(list(card_b[0]) == list(card), "find_peptides_batch[0] has "
+                                         "find_peptides' keys")
+    emit("find_peptides", shape=[HW, HW], psfs=len(card),
+         psfs_batch=[len(p) for p in card_b], launches=fp_launches,
+         max_center_diff_card_vs_cpu=worst, card_s=fp_s, cpu_s=fp_cpu_s)
+
+    # The zstack subcommand in a process of its own.
+    with tempfile.TemporaryDirectory() as tmp:
+        npy, out_csv = os.path.join(tmp, "frames.npy"), os.path.join(
+            tmp, "spots.csv")
+        np.save(npy, few)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fluorosequencingimageanalysis_torch",
+             "zstack", npy, "--output", out_csv, "--max-candidates",
+             str(Z_K)], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t
+        check(proc.returncode == 0, "the zstack subcommand exits 0: " +
+              proc.stderr[-2000:])
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(out_csv, newline="") as fh:
+            table = list(csv.reader(fh))
+    want = [[str(t_), str(full["center_h"][t_, i]),
+             str(full["center_w"][t_, i])]
+            for t_ in range(Z_EXH_T) for i in np.nonzero(full["keep"][t_])[0]]
+    check(summary["frames"] == Z_EXH_T and summary["spots"] == len(want)
+          and [r[:3] for r in table[1:]] == want,
+          f"the CSV's rows are the API's kept fits ({len(table) - 1}, "
+          f"{len(want)})")
+    emit("cli", command="zstack", frames=Z_EXH_T, rows=len(table) - 1,
+         wall_s=cli_s)
+
+    # run_zstack: the card against the CPU on a reduced stack.
+    small = make_zstack(**Z_SMALL)
+    on_card = Pipeline(device=dev).run_zstack(small,
+                                              max_candidates=Z_SMALL_K)
+    t = time.perf_counter()
+    on_cpu = Pipeline(device="cpu").run_zstack(small,
+                                               max_candidates=Z_SMALL_K)
+    cpu_s = time.perf_counter() - t
+    for k in ("cand_h", "cand_w", "keep", "cand_valid", "cand_count"):
+        check(np.array_equal(on_card[k], on_cpu[k]),
+              f"run_zstack {k} equal on the card and the CPU")
+    kept = on_cpu["keep"]
+    dc = max(float(np.abs(on_card[k][kept] - on_cpu[k][kept]).max())
+             for k in ("center_h", "center_w"))
+    dr2 = float(np.abs(on_card["r2"][kept] - on_cpu["r2"][kept]).max())
+    check(kept.sum() > 0 and dc <= B_CENTER and dr2 <= B_R2,
+          f"run_zstack kept fits card vs CPU: centers {dc}, R^2 {dr2}")
+    emit("zstack_card_vs_cpu", shape=list(small.shape),
+         max_candidates=Z_SMALL_K, kept=int(kept.sum()),
+         max_center_diff=dc, max_r2_diff=dr2, cpu_s=cpu_s)
+
+    def b_numbers(rep):
+        return {"fits": rep["fits"], "num_iters": n_iters,
+                "max_abs_err": rep["max_abs_err_all_outputs"],
+                "ms": rep["ms_median"], "plain_ms": rep["plain_ms_median"],
+                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                "share_of_bound": rep["share_of_bound"]}
+
+    return {
+        "launches": {"zstack": runs[0]["launches"],
+                     "zstack_exhaustive": exh_launches,
+                     "find_peptides": fp_launches},
+        "kernels": {
+            "candidate_map": {"zstack_group": {
+                "shape": [g, H, W], "max_abs_err": err_a,
+                "ms": statistics.median(a_ms),
+                "plain_ms": statistics.median(a_plain), "bound_ms": a_bound,
+                "bound_by": a_by,
+                "share_of_bound": a_bound / statistics.median(a_ms)}},
+            "fit_quality": {"zstack_group": b_numbers(b),
+                            "exhaustive_chunk": b_numbers(b_chunk)}}}
+
+
 def host_profile(pipe, stack, kw, top=15):
     """cProfile of run_experiment's host half for one group, run alone on
     this thread (no step beside it): the spot lists, linking, fill-in,
@@ -727,7 +1110,10 @@ def main():
     # 7. The experiment path, config 4, through the user's entry point.
     exp = experiment_phase(tmpl, dev, profile_host=args.profile)
 
-    # 8. Optional: where the device's time goes within run_stack.
+    # 8. The z-stack and single-image front doors, config 2.
+    zs = zstack_phases(tmpl, dev)
+
+    # 9. Optional: where the device's time goes within run_stack.
     if args.profile:
         prof = profile_steps(lambda: pipe.run_stack(x_host), 3)
         prof["device_busy_ms_per_step"] = prof["device_busy_us"] / 3e3
@@ -750,7 +1136,10 @@ def main():
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": None,
          "share_of_bound": a_bound / a_med, **ptxas["candidate_map"],
          "launches_experiment": exp["launches"]["candidate_map"],
-         "experiment": exp["kernels"]["candidate_map"]},
+         "experiment": exp["kernels"]["candidate_map"],
+         **{"launches_" + path: n["candidate_map"]
+            for path, n in zs["launches"].items()},
+         **zs["kernels"]["candidate_map"]},
         {"name": "fit_quality", "route": "cuda",
          "source": "fluorosequencingimageanalysis_torch/csrc/fit_quality.cu",
          "replaces": "fluorosequencingimageanalysis_tpu/models/"
@@ -763,7 +1152,10 @@ def main():
          "share_of_bound": b_report[1]["share_of_bound"],
          **ptxas["fit_quality"],
          "launches_experiment": exp["launches"]["fit_quality"],
-         "experiment": exp["kernels"]["fit_quality"]},
+         "experiment": exp["kernels"]["fit_quality"],
+         **{"launches_" + path: n["fit_quality"]
+            for path, n in zs["launches"].items()},
+         **zs["kernels"]["fit_quality"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """The port's front door: ``Pipeline(device=...)``.
 
 Counterpart of fluorosequencingimageanalysis_tpu/api.py ``Pipeline``'s
-``run_stack`` and ``run_experiment``, on one device. The JAX Pipeline's
-artifact store and mesh padding are not ported.
+``run_stack``, ``run_zstack`` and ``run_experiment``, on one device, with
+its content-hash artifact store (utils/checkpoint.py). The JAX Pipeline's
+mesh padding has no counterpart.
 
     from fluorosequencingimageanalysis_torch.api import Pipeline
     out = Pipeline(device="cuda").run_stack(stack)       # [F, C, H, W]
+    fits = Pipeline(device="cuda").run_zstack(frames)    # [T, H, W]
     res = Pipeline(device="cuda").run_experiment(stack, csv_path="t.csv")
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import logging
+import warnings
 
 import numpy as np
 import torch
@@ -32,6 +35,12 @@ _NATIVE_STACK_DTYPES = ("float32", "uint8", "uint16", "int16", "int32")
 # group's step; 8 fields of 8 cycles of 512x512 is 32 MB of uint16 frames
 # and 64 images per step.
 GROUP_FIELDS = 8
+
+# Frames per upload group of run_zstack: a group's upload runs beside the
+# previous group's background + detect + fit. 8 frames of 512x512 uint16
+# are 4 MB; at an 8192-candidate bucket a group is two rounds of the
+# consolidation's pair budget (ops/consolidate._MAX_PAIRS).
+GROUP_FRAMES = 8
 
 # The step outputs run_experiment fetches: the compact spot bucket (int16
 # rounded centers, int8 tri-state, candidate order), its photometry, the
@@ -54,22 +63,78 @@ def _normalize_stack(stack):
     return torch.from_numpy(np.ascontiguousarray(stack))
 
 
+class _GroupUploader:
+    """Groups of ``g`` items along a stack's first axis, on the device.
+
+    On a CUDA device the host stack is copied once into pinned memory and
+    each group uploads from it on a side copy stream, behind an event that
+    ``take`` makes the current stream wait on. A ``resident`` stack (by
+    default: one that lies on the device) is sliced, not copied."""
+
+    def __init__(self, stack, lows, g, device, resident=None):
+        self.stack, self.lows, self.g, self.dev = stack, lows, g, device
+        self.on_card = device.type == "cuda"
+        self.groups = [None] * len(lows)
+        self.events = [None] * len(lows)
+        if resident is None:
+            resident = stack.device == device
+        if resident:
+            self.groups = [stack[lo:lo + g] for lo in lows]
+        elif self.on_card:
+            self.host = stack if stack.is_pinned() else stack.pin_memory()
+            self.copy_stream = torch.cuda.Stream(device)
+
+    def upload(self, i):
+        """Enqueue group i's upload (once)."""
+        if self.groups[i] is not None:
+            return
+        lo, dev = self.lows[i], self.dev
+        part = (self.host if self.on_card else self.stack)[lo:lo + self.g]
+        if self.on_card:
+            buf = torch.empty(part.shape, dtype=part.dtype, device=dev)
+            # The buffer may reuse memory the main stream still reads.
+            self.copy_stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self.copy_stream):
+                buf.copy_(part, non_blocking=True)
+                self.events[i] = torch.cuda.Event()
+                self.events[i].record(self.copy_stream)
+            buf.record_stream(self.copy_stream)
+            self.groups[i] = buf
+        else:
+            self.groups[i] = part.to(dev)
+        profiling.bump("ledger/uploads")
+        profiling.bump("ledger/upload_bytes",
+                       part.numel() * part.element_size())
+
+    def take(self, i):
+        """Group i on the device, once the current stream has been told
+        to wait for its upload; the uploader drops its reference."""
+        self.upload(i)
+        if self.events[i] is not None:
+            torch.cuda.current_stream(self.dev).wait_event(self.events[i])
+        grp, self.groups[i] = self.groups[i], None
+        return grp
+
+
 class Pipeline:
-    """Config-driven experiment step and experiment on one device."""
+    """Config-driven detection, z-stack and experiment paths on one
+    device, optionally cached in an artifact store."""
 
     def __init__(self, config: PipelineConfig | None = None,
-                 device="cuda", profile: bool = False):
+                 device="cuda", store=None, profile: bool = False):
         """
         Arguments:
             config: PipelineConfig (defaults mirror the reference's); the
                 JAX package's PipelineConfig works too.
             device: where the step runs ("cuda", "cuda:1", "cpu", ...). A
                 CUDA device must exist; CPU runs the kernels' plain twins.
+            store: utils.checkpoint.ArtifactStore for run caching, or None.
             profile: record host-clock stage timings into
                 ``utils.profiling``'s registry.
         """
         self.config = config if config is not None else PipelineConfig()
         self.device = resolve_device(device)
+        self.store = store
         self.profile = profile
 
     def _stage(self, name):
@@ -90,19 +155,44 @@ class Pipeline:
             kw["photometry_min"] = photometry_min
         return kw
 
+    def _device_phot_method(self):
+        """The photometry method of the device bucket on the grouped
+        path: sextractor measures on the host on background-subtracted
+        images, so the bucket carries the sigmas fit product instead of
+        making the step raise."""
+        m = self.config.photometry.method
+        return "sigmas" if m == "sextractor" else m
+
+    def _run_stack_key(self, stack, stack_key, mc, max_spots, keys,
+                       device_method, photometry_min="config"):
+        """The store key run_stack and _stack_step_groups share, as (key,
+        stack_key). The device bucket's method is part of the key: the
+        two paths share entries, and a direct sextractor call (which
+        raises) must never hit the sigmas entry the grouped path writes."""
+        from .utils.checkpoint import content_key
+        if stack_key is None:
+            stack_key = content_key(stack.cpu().numpy())
+        return content_key("run_stack", stack_key, self.config.asdict(),
+                           mc, max_spots,
+                           sorted(keys) if keys is not None else None,
+                           device_method, photometry_min), stack_key
+
     def run_stack(self, stack, max_candidates=None, max_spots=None,
-                  keys=None, photometry_method=None,
+                  keys=None, stack_key=None, photometry_method=None,
                   photometry_min="config"):
         """Align + detect + fit + photometry over a [F, C, H, W] stack.
 
         ``stack``: numpy array or tensor; integer camera dtypes upload
         as-is and are cast to float32 on the device. ``keys``: optional
-        names of the outputs to return. ``photometry_method`` /
+        names of the outputs to return. ``stack_key``: optional
+        precomputed content hash of the stack (utils.checkpoint.
+        content_key of the host array) for the store. ``photometry_method`` /
         ``photometry_min``: overrides of the config's photometry method and
         floor ("config" keeps the config's floor, None disables it).
 
         Returns a dict of host numpy arrays with the schema of the JAX
-        package's ``experiment_step_sharded``.
+        package's ``experiment_step_sharded``, from the artifact store
+        (keyed by stack content + config) when one is set and holds it.
         """
         from .parallel.mesh import experiment_step
 
@@ -114,15 +204,26 @@ class Pipeline:
                                photometry_min)
         if keys is not None:
             keys = tuple(keys)
-        with self._stage("api/run_stack"):
-            x = stack.to(self.device)
-            with torch.no_grad():
-                out = experiment_step(x, max_spots=max_spots, **kw)
-            return {k: v.cpu().numpy() for k, v in out.items()
-                    if keys is None or k in keys}
+
+        def compute():
+            with self._stage("api/run_stack"):
+                x = stack.to(self.device)
+                with torch.no_grad():
+                    out = experiment_step(x, max_spots=max_spots, **kw)
+                return {k: v.cpu().numpy() for k, v in out.items()
+                        if keys is None or k in keys}
+
+        if self.store is not None:
+            key, _ = self._run_stack_key(
+                stack, stack_key, kw["max_candidates"], max_spots, keys,
+                kw["photometry_method"], kw["photometry_min"])
+            return self.store.get_or_compute(key, compute,
+                                             meta={"stage": "run_stack"})
+        return compute()
 
     def _stack_step_groups(self, stack, keys, max_candidates=None,
-                           max_spots=None, dispatch="eager"):
+                           max_spots=None, stack_key=None,
+                           dispatch="eager"):
         """Generator form of run_stack over groups of ``GROUP_FIELDS``
         fields, with unfloored photometry (the experiment rows are never
         floored, like the reference's track-photometries CSV).
@@ -141,7 +242,9 @@ class Pipeline:
         out_group holds host numpy arrays of the keys for fields
         ``lo:lo + len``; device_group is the group's [g, C, H, W] tensor
         on the device, in the stack's dtype, for the hole gathers. Group
-        k is yielded once group k+1's step has been enqueued.
+        k is yielded once group k+1's step has been enqueued. With an
+        artifact store the concatenated outputs are cached under
+        run_stack's key; a hit yields one ``(full_out, None, 0)``.
         """
         from .parallel.mesh import experiment_step
 
@@ -149,46 +252,28 @@ class Pipeline:
             raise ValueError(f"dispatch must be 'eager' or 'window' (got "
                              f"{dispatch!r})")
         g = GROUP_FIELDS
-        kw = self._step_kwargs(max_candidates, photometry_min=None)
+        kw = self._step_kwargs(max_candidates, self._device_phot_method(),
+                               photometry_min=None)
         keys = tuple(keys)
         dev = self.device
         on_card = dev.type == "cuda"
         F = stack.shape[0]
         lows = list(range(0, F, g))
-        groups = [None] * len(lows)
-        uploaded = [None] * len(lows)   # upload events (card only)
-        if stack.device == dev:
-            groups = [stack[lo:lo + g] for lo in lows]
-        elif on_card:
-            with self._stage("api/run_stack"):
-                host = stack if stack.is_pinned() else stack.pin_memory()
-            copy_stream = torch.cuda.Stream(dev)
-
-        def upload(i):
-            if groups[i] is not None:
+        key = None
+        if self.store is not None:
+            key, _ = self._run_stack_key(
+                stack, stack_key, kw["max_candidates"], max_spots, keys,
+                kw["photometry_method"], None)
+            if self.store.exists(key):
+                yield self.store.load(key), None, 0
                 return
-            part = (host if on_card else stack)[lows[i]:lows[i] + g]
-            if on_card:
-                buf = torch.empty(part.shape, dtype=part.dtype, device=dev)
-                # The buffer may reuse memory the main stream still reads.
-                copy_stream.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(copy_stream):
-                    buf.copy_(part, non_blocking=True)
-                    uploaded[i] = torch.cuda.Event()
-                    uploaded[i].record(copy_stream)
-                buf.record_stream(copy_stream)
-                groups[i] = buf
-            else:
-                groups[i] = part.to(dev)
-            profiling.bump("ledger/uploads")
-            profiling.bump("ledger/upload_bytes",
-                           part.numel() * part.element_size())
+        with self._stage("api/run_stack"):
+            uploader = _GroupUploader(stack, lows, g, dev)
 
         def step(i):
-            if uploaded[i] is not None:
-                torch.cuda.current_stream(dev).wait_event(uploaded[i])
+            grp = uploader.take(i)
             with torch.no_grad():
-                out = experiment_step(groups[i], max_spots=max_spots, **kw)
+                out = experiment_step(grp, max_spots=max_spots, **kw)
             profiling.bump("ledger/step_dispatches")
             event = None
             if on_card:
@@ -201,9 +286,7 @@ class Pipeline:
                 event.record()
             else:
                 fetched = {k: out[k].cpu() for k in keys}
-            item = (fetched, event, groups[i], lows[i])
-            groups[i] = None
-            return item
+            return fetched, event, grp, lows[i]
 
         def resolve(item):
             fetched, event, grp, lo = item
@@ -218,20 +301,241 @@ class Pipeline:
         n_ahead = 2 if dispatch == "window" else len(lows)
         with self._stage("api/run_stack"):
             for i in range(min(n_ahead, len(lows))):
-                upload(i)
+                uploader.upload(i)
+        parts = [] if key is not None else None
         pending = None
-        for i in range(len(lows)):
+        for i in range(len(lows) + 1):
             with self._stage("api/run_stack"):
-                current = step(i)
+                current = step(i) if i < len(lows) else None
                 if i + n_ahead < len(lows):
-                    upload(i + n_ahead)
+                    uploader.upload(i + n_ahead)
                 ready = resolve(pending) if pending is not None else None
             if ready is not None:
+                if parts is not None:
+                    parts.append(ready[0])
                 yield ready
             pending = current
-        with self._stage("api/run_stack"):
-            ready = resolve(pending)
-        yield ready
+        if key is not None:
+            self.store.save(key, {k: np.concatenate([p[k] for p in parts])
+                                  for k in keys},
+                            meta={"stage": "run_stack"})
+
+    def run_zstack(self, stack, box_size=10, filter_size=10,
+                   max_candidates=None, return_background=False,
+                   psfs=False, stack_key=None, lean=False,
+                   max_spots=None):
+        """Background estimation + batched PSF fits over a z/time stack
+        (one field observed over a z or time axis).
+
+        Per-frame SExtractor mesh backgrounds (ops.background) are
+        estimated and subtracted on the device, then every frame's spots
+        are detected and PSF-fitted (models.detect.detect_and_fit_batch).
+        Frames go up in groups of ``GROUP_FRAMES`` from pinned memory on a
+        side stream, so that a group's upload runs beside the previous
+        group's work, and each group's results copy back without waiting;
+        nothing passes through the host between the raw frames and the
+        fitted buckets. A stack already on the device runs as one group.
+
+        ``stack``: [T, H, W] numpy array or tensor in any camera dtype
+        (integer frames upload raw and are cast on the device).
+
+        ``max_candidates``: None = config.detect's bucket (a warning on
+        overflow); an integer sets the bucket; the string "exhaustive"
+        fits every above-threshold candidate of every frame through the
+        chunked path (models.detect.detect_and_fit_exhaustive), one
+        group at a time, while the next group's upload and background are
+        already enqueued.
+
+        ``lean``: keep-first compacted fetch (integer bucket only). Every
+        candidate is still detected and fitted, but only ``max_spots``
+        slots per frame (default 2048) come back, kept fits first
+        (models.detect.pack_spot_buckets). Returned arrays are then
+        [T, max_spots] spot-major, with an extra ``spot_count`` [T] (exact
+        keep totals; a value above max_spots means kept fits were cut,
+        and a warning fires).
+
+        Returns a dict of host numpy arrays, the SpotFindResult schema
+        batched over frames: cand_h/cand_w [T, K] int32, params [T, K, 7],
+        center_h/center_w/rmse/r2/s_n [T, K], keep/cand_valid [T, K] bool,
+        cand_count [T] int32; plus "background" [T, H, W] float32 with
+        ``return_background`` and "psfs" (per-frame reference-contract
+        psfs dicts built on the host from the background-subtracted
+        frames) with ``psfs``. The artifact store caches the array outputs
+        only (``psfs=True`` always computes).
+        """
+        from .models.detect import (SpotFindResult, _fetch_async,
+                                    detect_and_fit_batch,
+                                    detect_and_fit_exhaustive,
+                                    pack_spot_buckets, psfs_dicts_from_batch,
+                                    unpack_spot_buckets,
+                                    warn_candidate_overflow)
+        from .ops.background import stack_background, widen
+
+        # A tensor the caller placed on the device runs whole; host frames
+        # (arrays, and tensors elsewhere) go up in groups.
+        resident = (isinstance(stack, torch.Tensor) and
+                    stack.device == self.device)
+        stack = _normalize_stack(stack)
+        if stack.ndim != 3 or stack.shape[0] == 0:
+            raise ValueError("stack must be a non-empty [frames, H, W] "
+                             f"array (got shape {tuple(stack.shape)})")
+        det = self.config.detect
+        if psfs and det.consolidation_radius < 2:
+            # Before any device work: the psfs-dict build has
+            # find_peptides_batch's key-uniqueness precondition.
+            raise ValueError("consolidation_radius must be at least 2")
+        exhaustive = max_candidates == "exhaustive"
+        mc = (det.max_candidates if (max_candidates is None or exhaustive)
+              else max_candidates)
+        if lean and (exhaustive or psfs):
+            # The lean pack compacts a fixed bucket; the exhaustive path
+            # has its own chunked fetch, and the psfs build needs the full
+            # per-candidate schema.
+            raise ValueError("lean=True requires an integer "
+                             "max_candidates bucket and psfs=False")
+        n_spots_bucket = int(max_spots) if max_spots is not None else 2048
+        key = None
+        if self.store is not None and not psfs:
+            from .utils.checkpoint import content_key
+            if stack_key is None:
+                stack_key = content_key(stack.cpu().numpy())
+            key = content_key("run_zstack", stack_key, self.config.asdict(),
+                              box_size, filter_size,
+                              "exhaustive" if exhaustive else mc,
+                              return_background,
+                              *((("lean", n_spots_bucket),) if lean
+                                else ()))
+            if self.store.exists(key):
+                return self.store.load(key)
+        T = stack.shape[0]
+        dev = self.device
+        g = T if resident else GROUP_FRAMES
+        lows = list(range(0, T, g))
+        detect_kw = dict(
+            median_filter_size=det.median_filter_size, c_std=float(det.c_std),
+            r_2_threshold=float(det.r_2_threshold),
+            consolidation_radius=float(det.consolidation_radius),
+            num_iters=det.num_iters, theta_starts=det.theta_starts)
+        coord_dt = (torch.int16 if max(stack.shape[1:]) <= 32767
+                    else torch.int32)
+
+        def collect(item):
+            names, host, event = item
+            if event is not None:
+                event.synchronize()
+            out = {k: v.numpy() for k, v in zip(names, host)}
+            profiling.bump("ledger/result_fetches", len(out))
+            profiling.bump("ledger/fetch_bytes",
+                           sum(int(v.nbytes) for v in out.values()))
+            return out
+
+        def dispatch_group(i):
+            """Group i's background and subtraction, then (unless
+            exhaustive) detect + fit; starts the copies of its outputs to
+            the host. Returns ((names, host tensors, event), subtracted
+            frames or None)."""
+            grp = uploader.take(i)
+            profiling.bump("ledger/step_dispatches")
+            with torch.no_grad():
+                background = stack_background(
+                    grp, box_size=box_size, filter_size=filter_size)
+                subtracted = widen(grp) - background
+                extra = {}
+                if return_background:
+                    extra["background"] = background
+                if psfs:
+                    extra["subtracted"] = subtracted
+                if exhaustive:
+                    return (list(extra),
+                            *_fetch_async(list(extra.values()))), subtracted
+                res = detect_and_fit_batch(subtracted, max_candidates=mc,
+                                           **detect_kw)
+                if lean:
+                    fetch = dict(zip(
+                        ("_lean_f32", "_lean_ints", "_lean_flags",
+                         "_lean_spot_count", "_lean_cand_count"),
+                        pack_spot_buckets(res, n_spots_bucket,
+                                          coord_dtype=coord_dt)))
+                else:
+                    fetch = dict(res._asdict())
+                fetch.update(extra)
+            return (list(fetch), *_fetch_async(list(fetch.values()))), None
+
+        with self._stage("api/run_zstack"):
+            uploader = _GroupUploader(stack, lows, g, dev, resident)
+            if exhaustive:
+                # One-ahead window: group k+1's upload and background are
+                # enqueued before the chunked path (which waits for the
+                # candidate counts) runs on group k, so about two groups
+                # of frames are resident, not the whole subtracted stack.
+                uploader.upload(0)
+                cur = dispatch_group(0)
+                parts = []
+                for i in range(len(lows)):
+                    item, sub = cur
+                    if i + 1 < len(lows):
+                        uploader.upload(i + 1)
+                        cur = dispatch_group(i + 1)
+                    res = detect_and_fit_exhaustive(sub, **detect_kw)
+                    parts.append((res, collect(item)))
+                # Per-group candidate widths differ (K = chunks * chunk):
+                # pad to the widest; pad entries are invalid and unkept,
+                # like the chunked loop's own padding.
+                k_max = max(r.cand_h.shape[1] for r, _ in parts)
+
+                def pad_k(a, fill):
+                    pad = k_max - a.shape[1]
+                    if pad == 0:
+                        return a
+                    width = [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2)
+                    return np.pad(a, width, constant_values=fill)
+
+                fills = {"cand_h": 2, "cand_w": 2, "keep": False,
+                         "cand_valid": False}
+                out = {}
+                for name in SpotFindResult._fields:
+                    if name == "cand_count":
+                        out[name] = np.concatenate(
+                            [r.cand_count for r, _ in parts])
+                        continue
+                    out[name] = np.concatenate(
+                        [pad_k(getattr(r, name), fills.get(name, 0))
+                         for r, _ in parts])
+                for name in parts[0][1]:
+                    out[name] = np.concatenate(
+                        [extra[name] for _, extra in parts])
+            else:
+                for i in range(len(lows)):
+                    uploader.upload(i)
+                pending = [dispatch_group(i)[0] for i in range(len(lows))]
+                groups = [collect(item) for item in pending]
+                out = {k: np.concatenate([grp[k] for grp in groups])
+                       for k in groups[0]}
+                if lean:
+                    packed = [out.pop(k) for k in (
+                        "_lean_f32", "_lean_ints", "_lean_flags",
+                        "_lean_spot_count", "_lean_cand_count")]
+                    out = dict(unpack_spot_buckets(*packed), **out)
+        if not exhaustive:
+            warn_candidate_overflow(out["cand_count"], mc, "run_zstack")
+            if lean and (out["spot_count"] > n_spots_bucket).any():
+                worst = int(out["spot_count"].max())
+                warnings.warn(
+                    f"run_zstack(lean=True): {worst} kept fits exceed "
+                    f"max_spots={n_spots_bucket}; kept fits beyond the "
+                    "first max_spots (in candidate order, not by quality) "
+                    "were dropped from the fetch. Re-run with a larger "
+                    "max_spots (or lean=False) for full coverage.",
+                    stacklevel=2)
+        if psfs:
+            sub = out.pop("subtracted")
+            out["psfs"] = psfs_dicts_from_batch(
+                sub, out["keep"], out["params"], out["center_h"],
+                out["center_w"], out["rmse"], out["r2"], out["s_n"],
+                out["cand_h"], out["cand_w"], det.consolidation_radius)
+        if key is not None:
+            self.store.save(key, out, meta={"stage": "run_zstack"})
+        return out
 
     def run_experiment(self, stacks, csv_path=None, max_candidates=None,
                        max_spots=None, candidate_radius=2,
@@ -245,9 +549,11 @@ class Pipeline:
 
         The surface of the JAX package's ``Pipeline.run_experiment`` (see
         its docstring for every argument's reference semantics), without
-        the artifact store; ``config.photometry.method`` may be
-        mexican_hat, simple, maximum, gaussian_volume or sigmas (sextractor
-        is not ported yet and raises ValueError).
+        the detect step cached in the artifact store when one is set;
+        ``config.photometry.method`` may be mexican_hat, simple, maximum,
+        gaussian_volume, sigmas or sextractor (measured on the host on
+        background-subtracted frames, with the config's aperture_radius,
+        box_size and filter_size; the device bucket then carries sigmas).
 
         Arguments:
             stacks: a [F, C, H, W] array (channel 'ch1') or a dict
@@ -330,27 +636,47 @@ class Pipeline:
         summary = {}
         remainder_counts = {}
         mdma_adjustments = {}
+        # sextractor measures on the host: it is handed the host stack
+        # and the device photometry bucket is not fetched.
+        host_phot = phot.method == "sextractor"
+        keys = tuple(k for k in EXPERIMENT_KEYS
+                     if not (host_phot and k == "photometry"))
         for channel, stack in stacks.items():
             F, C = stack.shape[:2]
+            stack_key = None
+            if self.store is not None:
+                from .utils.checkpoint import content_key
+                stack_key = content_key(stack.cpu().numpy())
             # Hole gathers are enqueued per group and resolved once after
-            # the last group; save_averages never reads hole values.
-            hole_queue = None if save_averages else []
+            # the last group; save_averages never reads hole values and
+            # sextractor measures every position on the host.
+            hole_queue = None if (save_averages or host_phot) else []
 
             def track(out_grp, dev_grp, lo, stack=stack, C=C,
                       hole_queue=hole_queue):
                 with self._stage("api/run_experiment/track+photometry"):
                     Fg = out_grp["offsets_h"].shape[0]
                     rhs, rws, values = _spot_lists(out_grp, Fg, C)
+                    if host_phot:
+                        measured = stack[lo:lo + Fg]
+                    elif dev_grp is None:   # served from the store
+                        measured = stack[lo:lo + Fg].to(self.device)
+                    else:
+                        measured = dev_grp
                     per_field = run_experiment_stack(
-                        dev_grp, out_grp["offsets_h"], out_grp["offsets_w"],
+                        measured, out_grp["offsets_h"], out_grp["offsets_w"],
                         (rhs, rws), values, photometry_method=phot.method,
                         photometry_radius=phot.radius,
                         photometry_brim=phot.brim_size,
                         candidate_radius=candidate_radius,
+                        aperture_radius=phot.aperture_radius,
+                        box_size=phot.box_size,
+                        filter_size=phot.filter_size,
                         hole_queue=hole_queue,
                         skip_hole_gathers=save_averages,
                         keep_invalid=keep_invalid,
-                        host_images=(stack[lo:lo + Fg] if keep_invalid
+                        host_images=(stack[lo:lo + Fg]
+                                     if keep_invalid and not host_phot
                                      else None))
                 n_spots = sum(len(rh) for per_c in rhs for rh in per_c)
                 return per_field, out_grp, n_spots
@@ -359,9 +685,9 @@ class Pipeline:
                     concurrent.futures.ThreadPoolExecutor(1) as pool:
                 futures = [pool.submit(track, *item) for item in
                            self._stack_step_groups(
-                               stack, EXPERIMENT_KEYS,
-                               max_candidates=max_candidates,
-                               max_spots=max_spots, dispatch=dispatch)]
+                               stack, keys, max_candidates=max_candidates,
+                               max_spots=max_spots, stack_key=stack_key,
+                               dispatch=dispatch)]
                 parts = [f.result() for f in futures]
             per_field = [r for p, _, _ in parts for r in p]
             outs = [o for _, o, _ in parts]

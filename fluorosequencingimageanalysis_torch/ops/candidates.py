@@ -150,12 +150,58 @@ def find_candidates_batch(images, median_filter_size=5,
     The correlation maps come from ``fused_candidates.candidate_map_fused``
     (the CUDA kernel on a CUDA tensor for a 5x5 median and template, the
     plain recipe otherwise)."""
+    cms = candidate_maps_batch(images, median_filter_size,
+                               correlation_matrix)
+    return _threshold_and_extract_batch(cms, max_candidates, float(c_std))
+
+
+def extract_candidates_chunk(cms, excluded, chunk, c_std):
+    """One chunk of exhaustive candidate extraction from (B, H, W) maps.
+
+    Takes the top ``chunk`` above-threshold pixels that ``excluded``
+    ((B, H*W) bool, on the maps' device) does not mark yet, and marks
+    them. Chunks concatenate in exactly the order one big extraction
+    gives: scores descend across chunks, and equal scores, also those that
+    straddle a chunk boundary, come in ascending flat index
+    (``topk_lowest_index``), so the psfs-dict first-occurrence rule and the
+    NMS index tie-break see the single-bucket order.
+
+    Returns (hs, ws, valid, remaining, new_excluded): (B, chunk) int32
+    coordinates (padding slots point at (2, 2)), (B, chunk) bool, the (B,)
+    int32 count of above-threshold pixels not yet excluded at entry (the
+    first call's value is the true candidate count), and the updated mask.
+    """
+    B, h, w = cms.shape
+    mask = _candidate_mask_batch(cms, c_std) & ~excluded.reshape(B, h, w)
+    flat = torch.where(mask, cms, -torch.inf).reshape(B, -1)
+    remaining = mask.reshape(B, -1).sum(dim=1, dtype=torch.int32)
+    k = min(chunk, flat.shape[1])
+    top_scores, top_idx = topk_lowest_index(flat, k)
+    short = chunk - k
+    if short > 0:
+        top_scores = F.pad(top_scores, (0, short), value=-torch.inf)
+        top_idx = F.pad(top_idx, (0, short))
+    valid = top_scores > -torch.inf
+    # Padding slots carry index 0 with valid False; they write pixel 0's
+    # own value back (a border pixel, never a candidate), so every write
+    # to one address agrees and the scatter is deterministic.
+    new_excluded = excluded.scatter(
+        1, top_idx, valid | excluded.gather(1, top_idx))
+    hs = torch.where(valid, top_idx // w, 2).to(torch.int32)
+    ws = torch.where(valid, top_idx % w, 2).to(torch.int32)
+    return hs, ws, valid, remaining, new_excluded
+
+
+def candidate_maps_batch(images, median_filter_size=5,
+                         correlation_matrix=None):
+    """Batched correlation maps without the extraction: the front half of
+    ``find_candidates_batch``, so the exhaustive path computes the maps
+    once and extracts chunk by chunk (kernel A on a CUDA tensor)."""
     from .fused_candidates import candidate_map_fused
     if correlation_matrix is None:
         correlation_matrix = DEFAULT_CORRELATION_MATRIX
-    cms = candidate_map_fused(images, correlation_matrix,
-                              median_filter_size=median_filter_size)
-    return _threshold_and_extract_batch(cms, max_candidates, float(c_std))
+    return candidate_map_fused(images, correlation_matrix,
+                               median_filter_size=median_filter_size)
 
 
 def _jax_index(i, n, hi):

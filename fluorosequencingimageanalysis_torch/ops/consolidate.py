@@ -6,11 +6,13 @@ of each other are rivals, and the greedy keep-best rule (descending R^2,
 lower index first on ties; NaN or invalid R^2 ranks at -inf) is evaluated
 as a parallel fixpoint over the rival adjacency: an undecided fit is KEPT
 once no higher-priority rival is kept or undecided, and SUPPRESSED once a
-higher-priority rival is kept.
+higher-priority rival is kept. ``consolidate_host`` is the same rule as a
+spatially binned numpy loop, for candidate sets of any size.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Bound on B * N * N adjacency entries evaluated at once (memory of the
@@ -67,3 +69,60 @@ def consolidate(centers_h, centers_w, r2, valid, radius=4.0):
             *(a[lo:lo + group] for a in flat), radius))
     keep = torch.cat(parts) if parts else torch.zeros_like(flat[3])
     return keep.reshape(*lead, n)
+
+
+def consolidate_host(centers_h, centers_w, r2, valid, radius=4.0):
+    """NumPy greedy NMS with the output of :func:`consolidate`, for
+    candidate sets larger than one device bucket (the exhaustive chunked
+    detect path, models/detect.detect_and_fit_exhaustive). The JAX
+    package's ``consolidate_host``, line for line.
+
+    Spatial binning (cell = radius, 3x3 neighbourhood probe of kept spots)
+    makes it O(N x rivals) instead of O(N^2). Distances are computed in
+    the centers' own float dtype, like :func:`consolidate` (which compares
+    in ``ch.dtype``), so boundary cases (d^2 == radius^2 exactly) cannot
+    diverge for float32 or float64 inputs.
+    """
+    dt = (np.float64 if np.asarray(centers_h).dtype == np.float64
+          else np.float32)
+    ch = np.asarray(centers_h, dt)
+    cw = np.asarray(centers_w, dt)
+    r2a = np.asarray(r2, dt)
+    v = np.asarray(valid, bool)
+    n = ch.shape[0]
+    score = np.where(v & ~np.isnan(r2a), r2a, -np.inf)
+    order = np.argsort(-score, kind="stable")
+    keep = np.zeros(n, bool)
+    rad2 = dt(float(radius)) ** 2
+    cell = max(float(radius), 1e-6)
+    grid: dict = {}
+    for i in order:
+        if not v[i]:
+            # Invalids rank last and are never kept; stable argsort keeps
+            # the remaining iteration order identical to the device rank.
+            continue
+        hi, wi = ch[i], cw[i]
+        if not (np.isfinite(hi) and np.isfinite(wi)):
+            # NaN/inf-centered fits: every distance comparison is False on
+            # device (NaN <= r^2 is False), so they never rival anything —
+            # kept if valid, and never suppress others.
+            keep[i] = True
+            continue
+        bh = int(np.floor(hi / cell))
+        bw = int(np.floor(wi / cell))
+        rival = False
+        for dh in (-1, 0, 1):
+            if rival:
+                break
+            for dw in (-1, 0, 1):
+                for j in grid.get((bh + dh, bw + dw), ()):
+                    d2 = (hi - ch[j]) ** 2 + (wi - cw[j]) ** 2
+                    if d2 <= rad2:
+                        rival = True
+                        break
+                if rival:
+                    break
+        if not rival:
+            keep[i] = True
+            grid.setdefault((bh, bw), []).append(i)
+    return keep

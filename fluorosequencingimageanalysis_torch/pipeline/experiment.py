@@ -2,13 +2,35 @@
 
 Counterpart of ``write_category_counts_csv`` in
 fluorosequencingimageanalysis_tpu/pipeline/experiment.py (the reference's
-category_counts_as_csv). The experiment classes themselves are not ported;
+category_counts_as_csv) and of ``Experiment.easy_sort_target_images``, as
+a function. The experiment classes themselves are not ported;
 ``api.Pipeline.run_experiment`` is the port's experiment surface.
 """
 
 from __future__ import annotations
 
 import csv as csv_module
+import os
+
+
+def easy_sort_target_images(filepath_list):
+    """Sort image files into frame/field indexes by the directory=cycle,
+    filename=field convention (flexlibrary.py:1105-1154)."""
+    grouped = {}
+    for fpath in filepath_list:
+        d, f = os.path.split(os.path.abspath(fpath))
+        grouped.setdefault(d, []).append(f)
+    grouped = {d: sorted(flist) for d, flist in grouped.items()}
+    frame_indexed = {}
+    for index, d in enumerate(sorted(grouped.keys())):
+        for filepath in grouped[d]:
+            frame_indexed.setdefault(index, []).append(
+                os.path.join(d, filepath))
+    field_indexed = {}
+    for frame, fields in frame_indexed.items():
+        for f, field in enumerate(fields):
+            field_indexed.setdefault(f, []).append(field)
+    return frame_indexed, field_indexed
 
 
 def truefalse_to_onoff(pattern):

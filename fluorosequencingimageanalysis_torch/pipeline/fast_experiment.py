@@ -43,9 +43,11 @@ _KEY_M = np.int64(1 << 21)
 # Photometry methods of this path. The image metrics measure a square of
 # their own radius; gaussian_volume and sigmas are fit products the step
 # computed per detected spot, and interpolated spots take the reference's
-# fit-less defaults. The JAX package's sextractor metric is not ported.
+# fit-less defaults. sextractor measures circular-aperture sums on
+# background-subtracted images (flexlibrary.py:243-262), on the host, one
+# vectorised pass per image (pipeline/spots.py).
 FAST_PHOTOMETRY_METHODS = ("mexican_hat", "simple", "maximum",
-                           "gaussian_volume", "sigmas")
+                           "gaussian_volume", "sigmas", "sextractor")
 
 # Fit-less (interpolated-frame) defaults for the fit-product metrics.
 _FIT_METRIC_DEFAULTS = {"gaussian_volume": 0.0, "sigmas": -1e9}
@@ -53,10 +55,6 @@ _FIT_METRIC_DEFAULTS = {"gaussian_volume": 0.0, "sigmas": -1e9}
 
 def check_photometry_method(method):
     """Raise ValueError unless this path measures ``method``."""
-    if method == "sextractor":
-        raise ValueError("photometry method 'sextractor' is not ported to "
-                         "the PyTorch package yet (it needs the background "
-                         "module and the aperture sums)")
     if method not in FAST_PHOTOMETRY_METHODS:
         raise ValueError(f"run_experiment supports photometry methods "
                          f"{FAST_PHOTOMETRY_METHODS}; got {method!r}")
@@ -85,7 +83,9 @@ def _spot_lists(out, F, C):
     center (first candidate wins), then the step's tri-state validity
     (0 empty, 1 valid-but-rejected, 2 tracked, 3 wild) applied to the
     winners. Returns (rh[f][c], rw[f][c]) int64 arrays and the per-spot
-    photometry (float64) aligned with them.
+    photometry (float64) aligned with them, or None where ``out`` holds no
+    "photometry" (the sextractor path measures on the host and does not
+    fetch it).
     """
     state = np.asarray(out["spot_state"])
     if (state == 3).any():
@@ -99,7 +99,9 @@ def _spot_lists(out, F, C):
     rw = np.asarray(out["spot_rw"])[fi, ci, si].astype(np.int64)
     cand = np.asarray(out["spot_cand_c"])[fi, ci, si]
     kept = state[fi, ci, si] == 2
-    val = np.asarray(out["photometry"], np.float64)[fi, ci, si]
+    with_values = "photometry" in out
+    val = (np.asarray(out["photometry"], np.float64)[fi, ci, si]
+           if with_values else np.zeros(len(fi)))
     img = fi.astype(np.int64) * C + ci
     # Global (image, cand_idx) order == per-image candidate order.
     order = np.lexsort((cand, img))
@@ -119,7 +121,8 @@ def _spot_lists(out, F, C):
         return [[a[bounds[f * C + c]:bounds[f * C + c + 1]]
                  for c in range(C)] for f in range(F)]
 
-    return split(rh), split(rw), split(val[first])
+    return (split(rh), split(rw),
+            split(val[first]) if with_values else None)
 
 
 def _link_field(rh_by_cycle, rw_by_cycle, frame_shape, cum,
@@ -260,10 +263,15 @@ def _fill_traces(pos, present, cum, frame_shape, spot_radius=2,
     return filled, valid, hole_ok, win_ok
 
 
-def _photometry_window_radius(method, mexican_hat_radius):
+def _photometry_window_radius(method, mexican_hat_radius,
+                              aperture_radius=3):
     """The metric's square radius, which is also the validity radius of
     trace_to_photometry(return_invalid=False) for that metric.
-    gaussian_volume checks the spot box; sigmas imposes none."""
+    gaussian_volume checks the spot box; sigmas imposes none; sextractor
+    checks its aperture radius (flexlibrary.py:250-251), and the aperture
+    itself is cut at the frame's edges."""
+    if method == "sextractor":
+        return int(np.ceil(aperture_radius))
     return {"mexican_hat": mexican_hat_radius, "simple": 2,
             "maximum": 5, "gaussian_volume": 2, "sigmas": 0}[method]
 
@@ -393,6 +401,7 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
                          spot_values, photometry_method="mexican_hat",
                          photometry_radius=9, photometry_brim=6,
                          candidate_radius=2, chunk=65536,
+                         aperture_radius=3, box_size=10, filter_size=10,
                          hole_queue=None, skip_hole_gathers=False,
                          keep_invalid=False, host_images=None):
     """All fields: tracking -> fill-in -> validity -> photometry -> rows.
@@ -403,7 +412,12 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
     per-spot photometry aligned with spot_arrays. Detected frames take
     those values; only interpolated holes are gathered from ``stack`` (the
     fit-product metrics gaussian_volume and sigmas gather nothing: holes
-    take the reference's fit-less defaults).
+    take the reference's fit-less defaults). For sextractor ``stack`` is
+    the host stack (numpy array or CPU tensor), ``spot_values`` is unused
+    and every position is measured on the host: per image the mesh
+    background (``box_size``, ``filter_size``) is subtracted and all of
+    its trace positions are summed over the exact circular aperture of
+    ``aperture_radius``.
 
     hole_queue: if a list is given, the hole gathers are enqueued now and
     a request is appended for a later ``flush_hole_queue``; the returned
@@ -413,20 +427,24 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
     holes (the reference's None Spots) carry NaN, and positions whose
     window is clipped at a frame edge are measured on the host with the
     reference's clipped-slice semantics from ``host_images`` ((F, C, H, W)
-    numpy array or tensor of these fields), which is then required.
+    numpy array or tensor of these fields), which is then required,
+    except for sextractor, whose zero-padded aperture sum is the clipped
+    measurement already.
 
     Returns a list of per-field row lists, each row (category, h0, w0,
     photometries (C,)) in the reference's order.
     """
     check_photometry_method(photometry_method)
-    if spot_values is None:
+    host_phot = photometry_method == "sextractor"
+    if spot_values is None and not host_phot:
         raise ValueError("run_experiment_stack needs spot_values (the "
                          "step's per-spot photometry bucket)")
-    if keep_invalid and host_images is None:
+    if keep_invalid and host_images is None and not host_phot:
         raise ValueError("keep_invalid needs host_images for the "
                          "reference's clipped-slice edge measurements")
     window_radius = _photometry_window_radius(photometry_method,
-                                              photometry_radius)
+                                              photometry_radius,
+                                              aperture_radius)
     rhs, rws = spot_arrays
     F = len(rhs)
     C = len(rhs[0]) if F else 0
@@ -457,6 +475,36 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
     if keep_invalid:
         hole_ok = np.concatenate(all_hole_ok)   # False = None Spot (NaN)
         win_ok = np.concatenate(all_win_ok)     # False = clipped window
+
+    if host_phot:
+        # Zero padding is the clipped-slice edge semantics of an aperture
+        # sum (outside pixels contribute nothing either way), so
+        # keep_invalid needs no separate edge pass: only the None-Spot
+        # positions are masked to NaN.
+        from .spots import sextractor_aperture_sums
+
+        stack_np = (stack.cpu().numpy() if isinstance(stack, torch.Tensor)
+                    else np.asarray(stack))
+        phot = np.full((pos.shape[0], C), np.nan, np.float64)
+        start = 0
+        for f in range(F):
+            stop = start + field_sizes[f]
+            if stop == start:
+                continue
+            p = pos[start:stop]                       # (n, C, 2)
+            for c in range(C):
+                if not keep_invalid:
+                    phot[start:stop, c] = sextractor_aperture_sums(
+                        stack_np[f, c], p[:, c, 0], p[:, c, 1],
+                        aperture_radius, box_size, filter_size)
+                    continue
+                ok = hole_ok[start:stop, c]
+                if ok.any():
+                    phot[start:stop, c][ok] = sextractor_aperture_sums(
+                        stack_np[f, c], p[ok, c, 0], p[ok, c, 1],
+                        aperture_radius, box_size, filter_size)
+            start = stop
+        return _rows_by_field(pos, cats, phot, field_sizes, F)
 
     if photometry_method in _FIT_METRIC_DEFAULTS:
         phot = _lookup_spot_values(

@@ -1,6 +1,6 @@
 """Synthetic experiment stacks with planted Gaussian spots.
 
-Two recipes of the repo's benchmark (bench.py):
+Three recipes of the repo's benchmark (bench.py):
 
 - ``make_stack`` (bench.py::make_stack, the headline step): background
   N(400, 8), ``spots_per_field`` spots per field at integer pixel centers
@@ -10,7 +10,11 @@ Two recipes of the repo's benchmark (bench.py):
   the full experiment): background N(400, 6), persistent spots at
   subpixel centers at least 16 px from the border, amplitudes
   U(2000, 5000), present in each later cycle with probability 0.85, and an
-  integer stage drift of -2..2 px per cycle shared by every field.
+  integer stage drift of -2..2 px per cycle shared by every field;
+- ``make_zstack`` (bench.py::make_zstack, config 2, the z/time stack): one
+  field of persistent spots at subpixel centers, amplitudes U(1500, 4000),
+  on a sloped background with a broad bump that breathes by 5% over the
+  frames, noise N(0, 6), emitted as raw uint16 camera frames.
 """
 
 from __future__ import annotations
@@ -77,6 +81,52 @@ def make_experiment_stack(F, C, H=512, W=512, spots_per_field=2000, seed=0,
     if return_truth:
         return stack, positions, presence, drift
     return stack
+
+
+def make_zstack(T=32, H=512, W=512, n_spots=800, seed=4, return_truth=False):
+    """The config-2 workload: [T, H, W] uint16 frames of one field; with
+    ``return_truth`` also the planted centers [n_spots, 2] (float32)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.indices((H, W)).astype(np.float32)
+    base = (600 + 0.4 * yy + 0.25 * xx
+            + 120 * np.exp(-(((yy - 200) ** 2 + (xx - 300) ** 2)
+                             / (2 * 150.0 ** 2))))
+    pos = rng.uniform(16, H - 16, (n_spots, 2)).astype(np.float32)
+    amp = rng.uniform(1500, 4000, n_spots).astype(np.float32)
+    field = np.zeros((H, W), np.float32)
+    for h, w, a in zip(pos[:, 0], pos[:, 1], amp):
+        lo_h, hi_h = max(0, int(h) - 6), min(H, int(h) + 7)
+        lo_w, hi_w = max(0, int(w) - 6), min(W, int(w) + 7)
+        field[lo_h:hi_h, lo_w:hi_w] += a * np.exp(
+            -(((yy[lo_h:hi_h, lo_w:hi_w] - h) ** 2) +
+              ((xx[lo_h:hi_h, lo_w:hi_w] - w) ** 2)) / (2 * 1.3 ** 2))
+    stack = np.empty((T, H, W), np.float32)
+    for t in range(T):
+        stack[t] = (base * (1.0 + 0.05 * np.sin(t / 4.0)) + field
+                    + rng.normal(0, 6, (H, W)))
+    stack = np.clip(stack, 0, 65535).astype(np.uint16)
+    return (stack, pos) if return_truth else stack
+
+
+def zstack_peaks(out):
+    """Image coordinates (row, col) of every slot's fitted PSF peak in a
+    run_zstack result (full or lean schema): [T, K] float64 arrays. The
+    conventions are :func:`model_peaks`'s: the peak is at
+    (cand_h + p3 - 2, cand_w + p2 - 2)."""
+    p = out["params"].astype(np.float64)
+    return (out["cand_h"] + p[..., 3] - 2.0, out["cand_w"] + p[..., 2] - 2.0)
+
+
+def zstack_recall(pos, out, tol=1.0):
+    """Per frame, the share of planted centers ``pos`` [n, 2] with a kept
+    fit whose PSF peak lies within ``tol`` px: a [T] float array."""
+    rows, cols = zstack_peaks(out)
+    shares = np.zeros(len(rows))
+    for t in range(len(rows)):
+        k = out["keep"][t]
+        kept = np.stack([rows[t][k], cols[t][k]], 1)
+        shares[t] = np.mean(_nearest(pos.astype(np.float64), kept) <= tol)
+    return shares
 
 
 def model_peaks(out):

@@ -1,0 +1,247 @@
+"""The port's CLI (``python -m fluorosequencingimageanalysis_torch``) and
+its file front door (batch.py), on the CPU, against the JAX package's.
+
+``detect`` on a planted field written as a .tif must write the pkl/csv/png
+artifacts of the JAX package's ``batch.image_batch``: equal psfs keys in
+equal order, equal ``sub_img``, centers within 1e-3 px, the other floats
+(theta apart) within rtol 5e-3, atol 5e-3, and a byte-equal PNG. ``zstack``
+on a .npy and ``run-experiment`` on a two-cycle directory print the JAX
+CLI's JSON summary (same keys) and write CSVs whose rows are the API's.
+"""
+
+import csv
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from fluorosequencingimageanalysis_tpu import batch as jax_batch
+
+from fluorosequencingimageanalysis_torch import batch as port_batch
+from fluorosequencingimageanalysis_torch.__main__ import build_parser, main
+from fluorosequencingimageanalysis_torch.api import Pipeline
+from fluorosequencingimageanalysis_torch.config import (DetectConfig,
+                                                        PhotometryConfig,
+                                                        PipelineConfig)
+from fluorosequencingimageanalysis_torch.utils import synth
+
+torch.set_num_threads(1)  # tier-1 runs several xdist workers per host
+
+iio = pytest.importorskip("imageio.v2")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CENTER_ATOL = 1e-3
+FLOAT_TOL = dict(rtol=5e-3, atol=5e-3)
+
+
+def _planted(seed, H=80, W=80, n=8):
+    stack, _ = synth.make_stack(1, 1, H, W, spots_per_field=n, seed=seed)
+    return np.clip(stack[0, 0], 0, 65535).astype(np.uint16)
+
+
+def _json_line(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _assert_psfs_close(got, ref):
+    assert list(got) == list(ref) and len(ref) > 0
+    for key, r in ref.items():
+        g = got[key]
+        np.testing.assert_allclose(g[:2], r[:2], atol=CENTER_ATOL)
+        np.testing.assert_allclose(g[2:6], r[2:6], **FLOAT_TOL)
+        np.testing.assert_allclose(g[9:], r[9:], **FLOAT_TOL)
+        np.testing.assert_array_equal(g[7], r[7])
+        assert g[8].shape == (5, 5)
+
+
+def test_detect_writes_the_jax_packages_artifacts(tmp_path, capsys):
+    for name in ("port", "jax"):
+        (tmp_path / name).mkdir()
+        iio.imwrite(tmp_path / name / "field.tif", _planted(3))
+    image = str(tmp_path / "port" / "field.tif")
+    assert main(["detect", image, "--device", "cpu"]) == 0
+    summary = _json_line(capsys)
+    assert summary["images"] == summary["processed"] == 1
+    pkl, csv_path, png = summary["artifacts"][image]
+    assert pkl.startswith(image + "_psfs_") and pkl.endswith(".pkl")
+    with open(pkl, "rb") as fh:
+        got = pickle.load(fh)
+    assert summary["spots"][image] == len(got) >= 6
+    ref_image = str(tmp_path / "jax" / "field.tif")
+    ref_out = jax_batch.image_batch([ref_image])[ref_image]
+    with open(ref_out[1], "rb") as fh:
+        ref = pickle.load(fh)
+    _assert_psfs_close(got, ref)
+    with open(csv_path, newline="") as fh:
+        rows = list(csv.reader(fh, dialect="excel-tab"))
+    with open(ref_out[2], newline="") as fh:
+        ref_rows = list(csv.reader(fh, dialect="excel-tab"))
+    assert rows[0] == ref_rows[0] and len(rows) == len(ref_rows) == \
+        len(got) + 1
+    assert [r[0] for r in rows[1:]] == [image] * len(got)
+    for r, (h0, w0, *_rest) in zip(rows[1:], got.values()):
+        assert (r[1], r[2]) == (str(h0), str(w0))
+    with open(png, "rb") as a, open(ref_out[3], "rb") as b:
+        assert a.read() == b.read()         # same keys, same squares
+    # Flags reach find_peptides; a capped bucket warns and keeps fewer.
+    assert main(["detect", image, "--device", "cpu", "--max-candidates",
+                 "512", "--c-std", "4", "--r2-threshold", "0.9"]) == 0
+    strict = _json_line(capsys)
+    assert 0 < strict["spots"][image] <= len(got)
+    # A missing image is skipped and turns the exit code.
+    assert main(["detect", str(tmp_path / "nope.tif"), "--device",
+                 "cpu"]) == 1
+    assert _json_line(capsys)["processed"] == 0
+
+
+def test_batch_runners_match_the_jax_packages(tmp_path):
+    paths = {}
+    for name in ("port", "jax"):
+        (tmp_path / name).mkdir()
+        paths[name] = []
+        for i, shape in enumerate([(64, 64), (64, 64), (48, 72)]):
+            p = str(tmp_path / name / f"f{i}.tif")
+            iio.imwrite(p, _planted(10 + i, *shape, n=5))
+            paths[name].append(p)
+    kw = dict(find_peptides_parameters={"num_iters": 30}, timestamp_epoch=77)
+    got = port_batch.parallel_image_batch(
+        paths["port"], find_peptides_parameters={
+            "num_iters": 30, "device": "cpu", "fit_type": "gauss"},
+        timestamp_epoch=77, num_processes=3)
+    ref = jax_batch.parallel_image_batch(paths["jax"], **kw)
+    assert [os.path.basename(p) for p in got] == \
+        [os.path.basename(p) for p in ref]
+    for (p, g), r in zip(got.items(), ref.values()):
+        assert g[0] == p and [os.path.basename(x) for x in g[1:]] == \
+            [os.path.basename(x) for x in r[1:]]
+        with open(g[1], "rb") as a, open(r[1], "rb") as b:
+            psfs = pickle.load(a)
+            _assert_psfs_close(psfs, pickle.load(b))
+        one = port_batch.image_batch(
+            [p], find_peptides_parameters={"num_iters": 30,
+                                           "device": "cpu"},
+            timestamp_epoch=78)[p]
+        with open(one[1], "rb") as fh:
+            single = pickle.load(fh)
+        assert list(single) == list(psfs)
+        out = port_batch.save_psfs_csv(psfs, output_path=str(
+            tmp_path / "x.csv"))
+        assert out.endswith("x.csv")
+    with pytest.raises(ValueError, match="image_path or output_path"):
+        port_batch.save_psfs_pkl({})
+    # monte_carlo is not ported: the per-image runner logs and skips.
+    assert port_batch.parallel_image_batch(
+        paths["port"][:1], find_peptides_parameters={
+            "fit_type": "monte_carlo", "device": "cpu"}) == {}
+
+
+def test_zstack_cli_rows_are_the_apis_kept_fits(tmp_path, capsys):
+    stack = synth.make_zstack(3, 96, 96, n_spots=12)
+    npy = str(tmp_path / "frames.npy")
+    np.save(npy, stack)
+    out_csv = str(tmp_path / "spots.csv")
+    bg_npy = str(tmp_path / "bg.npy")
+    argv = ["zstack", npy, "--output", out_csv, "--box-size", "16",
+            "--filter-size", "3", "--max-candidates", "256",
+            "--background-npy", bg_npy, "--store", str(tmp_path / "store"),
+            "--device", "cpu"]
+    assert main(argv) == 0
+    summary = _json_line(capsys)
+    assert sorted(summary) == ["background_npy", "candidates_per_frame",
+                               "frames", "output", "spots"]
+    api_out = Pipeline(PipelineConfig(detect=DetectConfig(
+        max_candidates=256)), device="cpu").run_zstack(
+            stack, box_size=16, filter_size=3, return_background=True)
+    assert summary["frames"] == 3
+    assert summary["spots"] == int(api_out["keep"].sum()) >= 24
+    assert summary["candidates_per_frame"] == api_out["cand_count"].tolist()
+    with open(out_csv, newline="") as fh:
+        rows = list(csv.reader(fh))
+    assert rows[0] == ["FRAME", "H", "W", "AMPLITUDE", "SIGMA_H", "SIGMA_W",
+                       "THETA", "RMSE", "R_2", "S_N"]
+    want = [[str(t), str(api_out["center_h"][t, i]),
+             str(api_out["center_w"][t, i])]
+            for t in range(3) for i in np.nonzero(api_out["keep"][t])[0]]
+    assert [r[:3] for r in rows[1:]] == want
+    np.testing.assert_array_equal(np.load(bg_npy), api_out["background"])
+    assert main(argv) == 0                  # second run: from the store
+    assert _json_line(capsys)["spots"] == summary["spots"]
+    np.save(npy, stack[0])
+    with pytest.raises(SystemExit, match="T, H, W"):
+        main(["zstack", npy, "--device", "cpu"])
+    # The module entry point, as a user runs it.
+    np.save(npy, stack[:1])
+    proc = subprocess.run(
+        [sys.executable, "-m", "fluorosequencingimageanalysis_torch",
+         "zstack", npy, "--output", out_csv, "--max-candidates", "128",
+         "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["frames"] == 1
+
+
+def test_run_experiment_cli_on_a_two_cycle_directory(tmp_path, capsys):
+    stack = synth.make_experiment_stack(2, 2, 96, 96, spots_per_field=10)
+    stack = np.clip(stack, 0, 65535).astype(np.uint16)
+    files = []
+    for c in range(2):
+        d = tmp_path / f"cycle_{c}"
+        d.mkdir()
+        for f in range(2):
+            files.append(str(d / f"field_{f}.tif"))
+            iio.imwrite(files[-1], stack[f, c])
+    out_dir = str(tmp_path / "out")
+    assert main(["run-experiment", "--peptide-files", *files,
+                 "--output-dir", out_dir, "--max-candidates", "128",
+                 "--photometry-method", "sextractor", "--detect-parameters",
+                 "{'num_iters': 30}", "--offsets-pkl", "offsets.pkl",
+                 "--all-categories", "--profile", "--device", "cpu"]) == 0
+    summary = _json_line(capsys)
+    assert sorted(summary) == ["category_csv", "channels", "csv", "cycles",
+                               "fields", "rows", "stages_sec", "summary"]
+    assert (summary["fields"], summary["cycles"]) == (2, 2)
+    assert summary["channels"] == ["ch1"] and summary["rows"] > 0
+    assert "api/run_stack" in summary["stages_sec"]
+    cfg = PipelineConfig(
+        detect=DetectConfig(num_iters=30),
+        photometry=PhotometryConfig(method="sextractor"))
+    want = Pipeline(cfg, device="cpu").run_experiment(stack,
+                                                      max_candidates=128)
+    with open(summary["csv"], newline="") as fh:
+        rows = list(csv.reader(fh))
+    assert rows[0] == ["CHANNEL", "FIELD", "H", "W", "CATEGORY", "FRAME 0",
+                       "FRAME 1"]
+    assert len(rows) == len(want["rows"]) + 1 == summary["rows"] + 1
+    for r, w in zip(rows[1:], want["rows"]):
+        assert r[:5] == [str(x) for x in w[:5]]
+        assert r[5:] == [str(v) for v in w[5]]
+    with open(summary["category_csv"], newline="") as fh:
+        assert next(csv.reader(fh)) == ["Pattern", "Channel", "Count"]
+    with open(os.path.join(out_dir, "offsets.pkl"), "rb") as fh:
+        offsets = pickle.load(fh)
+    np.testing.assert_array_equal(offsets["ch1"][0], want["offsets"]["ch1"][0])
+    with pytest.raises(SystemExit, match="same number"):
+        main(["run-experiment", "--peptide-files", *files[:3],
+              "--output-dir", out_dir, "--device", "cpu"])
+
+
+def test_parser_has_the_ported_subcommands_and_the_cards_default(tmp_path):
+    parser = build_parser()
+    for argv in (["detect", "a.tif"], ["zstack", "a.npy"],
+                 ["run-experiment", "--peptide-files", "a.tif"]):
+        assert parser.parse_args(argv).device == "cuda"
+    for name in ("timetrace", "stepfit", "simulate"):
+        with pytest.raises(SystemExit):
+            parser.parse_args([name])
+    args = parser.parse_args(["zstack", "a.npy"])
+    assert (args.box_size, args.filter_size, args.output) == (
+        10, 10, "zstack_spots.csv")
+    if not torch.cuda.is_available():
+        npy = str(tmp_path / "frames.npy")
+        np.save(npy, np.zeros((1, 16, 16), np.uint16))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["zstack", npy])

@@ -209,3 +209,65 @@ def test_hole_gathers_on_the_card_equal_the_cpu(dev):
     got = gather_windows(x.to(dev), *(i.to(dev) for i in idx), 9)
     ref = gather_windows(x, *idx, 9)
     assert torch.equal(got.cpu(), ref)
+
+
+def test_kernels_match_twins_at_the_zstack_shapes(dev):
+    """One upload group of config 2: 8 background-subtracted frames of
+    512x512, an 8192-candidate bucket, 60 iterations; and the exhaustive
+    path's 4096-candidate chunk."""
+    from fluorosequencingimageanalysis_torch.ops.background import (
+        subtract_background_stack)
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        _threshold_and_extract_batch)
+    from fluorosequencingimageanalysis_torch.utils.synth import make_zstack
+    sub = subtract_background_stack(make_zstack(8), device=dev)
+    cm = candidate_map_fused(sub, DEFAULT_CORRELATION_MATRIX)
+    assert float((cm - candidate_map_plain(
+        sub, DEFAULT_CORRELATION_MATRIX)).abs().max()) == 0.0
+    hs, ws, valid, count = _threshold_and_extract_batch(cm, 8192, 2.0)
+    assert int(count.min()) > 4096
+    for k in (8192, 4096):
+        h, w = hs[:, :k].contiguous(), ws[:, :k].contiguous()
+        got = fit_quality(sub, h, w, 60, 1)
+        ref = fit_quality_plain(sub, h, w, 60, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0])          # parameters, bit for bit
+        m = valid[:, :k] & (ref[4] >= 0.7)
+        assert int(m.sum()) > 8 * 500
+        assert float((got[1] - ref[1]).abs()[m].max()) <= 1e-3
+        assert float((got[4] - ref[4]).abs()[m].max()) <= 1e-4
+
+
+def test_run_zstack_and_find_peptides_card_vs_cpu(dev):
+    from fluorosequencingimageanalysis_torch.models.detect import (
+        find_peptides)
+    from fluorosequencingimageanalysis_torch.utils.synth import make_zstack
+    stack = make_zstack(5, 128, 128, n_spots=40)
+    a0, b0 = candidate_map_fused.launches, fit_quality.launches
+    outs = {}
+    for kw in (dict(max_candidates=1024),
+               dict(max_candidates=1024, lean=True, max_spots=128),
+               dict(max_candidates="exhaustive", return_background=True)):
+        card = Pipeline(device=dev).run_zstack(stack, **kw)
+        cpu = Pipeline(device="cpu").run_zstack(stack, **kw)
+        assert list(card) == list(cpu)
+        for k in ("cand_h", "cand_w", "keep", "cand_valid", "cand_count"):
+            np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+        kept = cpu["keep"]
+        assert kept.sum() >= 5 * 30
+        for k in ("center_h", "center_w"):
+            np.testing.assert_allclose(card[k][kept], cpu[k][kept],
+                                       atol=1e-3)
+        np.testing.assert_allclose(card["r2"][kept], cpu["r2"][kept],
+                                   atol=1e-4)
+        outs[str(kw["max_candidates"]) + str(kw.get("lean"))] = card
+    assert candidate_map_fused.launches >= a0 + 3
+    assert fit_quality.launches >= b0 + 3
+    bg = outs["exhaustiveNone"]["background"]
+    assert bg.dtype == np.float32 and bg.shape == stack.shape
+    img = stack[0].astype(np.float32)
+    card, cpu = find_peptides(img), find_peptides(img, device="cpu")
+    assert list(card) == list(cpu) and len(cpu) >= 30
+    for key in cpu:
+        np.testing.assert_allclose(card[key][:2], cpu[key][:2], atol=1e-3)
+        np.testing.assert_array_equal(card[key][7], cpu[key][7])

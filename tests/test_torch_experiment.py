@@ -482,14 +482,42 @@ def test_uint16_equals_float32(stack, got):
 
 
 def test_sextractor_raises_and_overflow_warns(stack, caplog):
+    # sextractor measures on the host inside run_experiment; the device
+    # step has no such bucket, so a direct run_stack raises, as in the JAX
+    # package.
     cfg = PipelineConfig(photometry=PhotometryConfig(method="sextractor"))
-    with pytest.raises(ValueError, match="sextractor.*not ported"):
-        Pipeline(cfg, device="cpu").run_experiment(stack)
+    with pytest.raises(ValueError, match="photometry_method.*sextractor"):
+        Pipeline(cfg, device="cpu").run_stack(stack[:1])
     with caplog.at_level(logging.WARNING,
                          logger="fluorosequencingimageanalysis_torch.api"):
         _port(stack[:1], max_spots=4)
     assert any("max_spots" in r.message for r in caplog.records)
     assert any("max_candidates" in r.message for r in caplog.records)
+
+
+SEXTRACTOR_RTOL = 1e-6  # host float64 aperture sums on both sides
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(keep_invalid=True),
+                                dict(save_averages=True)])
+def test_sextractor_photometry_matches_jax(stack, kw):
+    g = _port(stack, method="sextractor", **kw)
+    r = _jax(stack, method="sextractor", **kw)
+    assert len(r["rows"]) > 0
+    _assert_same(g, r, rtol=SEXTRACTOR_RTOL)
+    if not kw:
+        # The aperture parameters ride the config.
+        cfg = PipelineConfig(photometry=PhotometryConfig(
+            method="sextractor", aperture_radius=2.5, box_size=16,
+            filter_size=3))
+        jcfg = JaxPipelineConfig(photometry=JaxPhotometryConfig(
+            method="sextractor", aperture_radius=2.5, box_size=16,
+            filter_size=3))
+        g2 = Pipeline(cfg, device="cpu").run_experiment(
+            stack[:1], max_candidates=MC)
+        r2 = JaxPipeline(jcfg).run_experiment(stack[:1], max_candidates=MC)
+        _assert_same(g2, r2, rtol=SEXTRACTOR_RTOL)
+        assert not np.allclose(g2["rows"][0][5], g["rows"][0][5])
 
 
 def test_experiment_recovery_of_planted_spots(stack, got):

@@ -22,22 +22,31 @@ PORT_DIR = os.path.dirname(os.path.abspath(port.__file__))
 REPO = os.path.dirname(PORT_DIR)
 MODULES = [
     "fluorosequencingimageanalysis_torch",
+    "fluorosequencingimageanalysis_torch.__main__",
     "fluorosequencingimageanalysis_torch.api",
+    "fluorosequencingimageanalysis_torch.batch",
     "fluorosequencingimageanalysis_torch.config",
     "fluorosequencingimageanalysis_torch._build",
     "fluorosequencingimageanalysis_torch.models.detect",
     "fluorosequencingimageanalysis_torch.parallel.mesh",
+    "fluorosequencingimageanalysis_torch.ops.background",
+    "fluorosequencingimageanalysis_torch.ops.consolidate",
     "fluorosequencingimageanalysis_torch.ops.fused_candidates",
     "fluorosequencingimageanalysis_torch.ops.fused_fit",
     "fluorosequencingimageanalysis_torch.ops.photometry",
     "fluorosequencingimageanalysis_torch.ops.registration",
+    "fluorosequencingimageanalysis_torch.utils.checkpoint",
     "fluorosequencingimageanalysis_torch.utils.convert",
+    "fluorosequencingimageanalysis_torch.utils.hashing",
+    "fluorosequencingimageanalysis_torch.utils.imageio",
+    "fluorosequencingimageanalysis_torch.utils.visualize",
     "fluorosequencingimageanalysis_torch.utils.synth",
     "fluorosequencingimageanalysis_torch.utils.profiling",
     "fluorosequencingimageanalysis_torch.utils.rounding",
     "fluorosequencingimageanalysis_torch.native.tracklink",
     "fluorosequencingimageanalysis_torch.pipeline.experiment",
     "fluorosequencingimageanalysis_torch.pipeline.fast_experiment",
+    "fluorosequencingimageanalysis_torch.pipeline.spots",
     "fluorosequencingimageanalysis_torch.pipeline.tracking",
 ]
 
@@ -65,6 +74,18 @@ def test_port_imports_and_runs_with_jax_blocked():
         "exp = make_experiment_stack(1, 3, 48, 48, spots_per_field=4)\n"
         "res = Pipeline(cfg, device='cpu').run_experiment(exp)\n"
         "assert res['rows'] and res['summary']['ch1']['trace_count']\n"
+        "from fluorosequencingimageanalysis_torch.models.detect import (\n"
+        "    find_peptides)\n"
+        "from fluorosequencingimageanalysis_torch.utils.checkpoint import (\n"
+        "    ArtifactStore)\n"
+        "import tempfile\n"
+        "frames = exp[0].astype(np.uint16)\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    pipe = Pipeline(cfg, device='cpu', store=ArtifactStore(tmp))\n"
+        "    z = pipe.run_zstack(frames, box_size=16, filter_size=3)\n"
+        "    assert z['keep'].shape == (3, 16) and z['keep'].any()\n"
+        "    assert pipe.store.exists(next(pipe.store.keys()))\n"
+        "assert find_peptides(frames[0], num_iters=3, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.startswith(\n"
         "    ('jax', 'fluorosequencingimageanalysis_tpu'))\n"
         "    and sys.modules[m] is not None)\n"
@@ -97,7 +118,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                     assert not name.split(".")[0] in (
                         "jax", "jaxlib", "fluorosequencingimageanalysis_tpu"
                     ), (f, name)
-    assert seen >= 15
+    assert seen >= 30
     for name in _imported_names(os.path.join(REPO, "chip_smoke.py")):
         assert name.split(".")[0] not in (
             "jax", "fluorosequencingimageanalysis_tpu"), name
@@ -123,6 +144,76 @@ def test_config_is_the_jax_packages_config():
         dataclasses.asdict(jax_config.DetectConfig.from_cli(cli))
     with pytest.raises(ValueError, match="unknown"):
         port_config.DetectConfig.from_cli("{'nope': 1}")
+
+
+def _code_without_imports_and_docstrings(path):
+    """The AST of a module, without its import statements (the copies
+    import their siblings from their own package, and Pillow where it is
+    used) and without docstrings."""
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if not isinstance(body, list):
+            continue
+        if (body and isinstance(body[0], ast.Expr) and
+                isinstance(getattr(body[0], "value", None), ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body = body[1:]
+        node.body = [n for n in body
+                     if not isinstance(n, (ast.Import, ast.ImportFrom))]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", ["checkpoint", "hashing", "imageio",
+                                    "visualize"])
+def test_copied_utils_are_the_jax_packages(module):
+    """The port keeps its own copies of these numpy-only modules; they
+    must stay the JAX package's code, statement for statement."""
+    port_path = os.path.join(PORT_DIR, "utils", module + ".py")
+    jax_path = os.path.join(REPO, "fluorosequencingimageanalysis_tpu",
+                            "utils", module + ".py")
+    assert _code_without_imports_and_docstrings(port_path) == \
+        _code_without_imports_and_docstrings(jax_path)
+    # Image libraries are imported where they are used, so the package
+    # imports on a machine without them.
+    tree = ast.parse(open(port_path).read())
+    top = [a.name for n in tree.body if isinstance(n, ast.Import)
+           for a in n.names] + [n.module for n in tree.body
+                                if isinstance(n, ast.ImportFrom)
+                                and n.level == 0]
+    assert not [m for m in top if m and m.split(".")[0] in
+                ("PIL", "imageio", "orbax")]
+
+
+def test_copied_host_functions_are_the_jax_packages():
+    """Functions copied out of modules that import jax: the same code,
+    docstrings and comments apart."""
+    def funcs(path, names):
+        tree = ast.parse(open(path).read(), filename=path)
+        out = {}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef) and node.name in names:
+                if isinstance(node.body[0], ast.Expr) and isinstance(
+                        node.body[0].value, ast.Constant):
+                    node.body = node.body[1:]
+                out[node.name] = ast.dump(node)
+        return out
+
+    jax_dir = os.path.join(REPO, "fluorosequencingimageanalysis_tpu")
+    for rel, names in [
+            ("ops/consolidate.py", ["consolidate_host"]),
+            ("ops/background.py", ["pairwise_zoom_bases",
+                                   "reflect_window_index"]),
+            ("pipeline/spots.py", [
+                "sigma_clip_boxes", "sextractor_mode", "_mesh_background",
+                "sextractor_aperture_sums", "_circle_pixel_area",
+                "_aperture_fracs", "_aperture_sum"]),
+            ("models/detect.py", ["unpack_spot_buckets", "_center_keys"])]:
+        got = funcs(os.path.join(PORT_DIR, rel), names)
+        want = funcs(os.path.join(jax_dir, rel), names)
+        assert sorted(got) == sorted(names) == sorted(want), rel
+        for n in names:
+            assert got[n] == want[n], (rel, n)
 
 
 def test_tf32_is_pinned_off():
