@@ -30,6 +30,16 @@ split, peak memory, launches, lean against the full schema, planted
 recovery), the exhaustive path on 8 of those frames against the capped
 run, ``find_peptides`` and ``find_peptides_batch`` and ``run_zstack``
 against the CPU, and the ``zstack`` subcommand in a process of its own.
+Then the movie front door and the step fitters: config 3 (4096 traces of
+100 frames, mirror 10, one Chung-Kennedy pass, p 0.01) through
+``Pipeline(device="cuda").stepfit`` (traces/s, the stage split, every
+result against the CPU run and a sample against the float64 host chain),
+the chi-squared fitter on 2048 x 100 traces (host work), a 24-frame movie
+of a 512x512 field with 800 bleaching spots through ``run_timetrace``
+(wall, traces/s, the stage split and the share of the wall no stage
+names, the tracker loop alone, planted recovery, the CSV, both kernels at
+this path's shapes), the card against the CPU on a reduced movie, and the
+``stepfit`` subcommand in a process of its own.
 ``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
 run_experiment, and a cProfile of one group's host half. Prints one
@@ -44,6 +54,7 @@ import collections
 import csv
 import json
 import os
+import platform
 import statistics
 import subprocess
 import sys
@@ -58,6 +69,7 @@ MAX_CANDIDATES, NUM_ITERS, UPSAMPLE = 2048, 40, 20
 B_CENTER, B_R2, B_RMSE_REL, B_MODEL = 1e-3, 1e-4, 1e-4, 1e-3
 SWEEP = [(48, 100), (33, 257), (70, 130), (96, 384)]
 KERNELS = ("candidate_map", "fit_quality")
+HOST_CORES = ("tracklink", "stepchain", "chisqfit")
 # Config 4 (bench.py's experiment workload): fields, cycles, candidate and
 # spot buckets, timed runs after one warm-up.
 EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
@@ -76,6 +88,20 @@ BG_BOUND = 5e-5
 # A planted spot counts as isolated when no other lies within the
 # consolidation radius (4 px) plus the 1 px tolerance.
 ISOLATED_PX = 5.0
+# Config 3 (bench.py::bench_stepfit) and bench.py::bench_chisq: traces,
+# frames, timed runs after one warm-up, traces held against the host chain.
+SF_N, SF_T, SF_REPS, SF_HOST_SAMPLE = 4096, 100, 3, 24
+SF_KW = dict(mirror_start=10, chung_kennedy=1, p_threshold=0.01)
+CHI_N, CHI_T, CHI_STEPS, CHI_HOST_SAMPLE = 2048, 100, 10, 12
+# The timetrace movie (bench.py::bench_timetrace): frames and planted
+# spots of a 512x512 field; the card against the CPU on a reduced movie.
+TT_T, TT_SPOTS, TT_REPS = 24, 800, 3
+TT_SMALL = dict(T=12, H=128, W=128, n_spots=30, seed=1)
+# A trace starts at a rounded center (up to half a pixel of rounding on
+# each axis), so its start is held within 1 px of the planted spot on each
+# axis; a tracked position within 1.5 px (Euclidean) in every live frame.
+TT_START_PX, TT_STAY_PX, TT_UNNAMED_SHARE = 1.0, 1.5, 0.10
+CLI_STEPFIT_N = 256
 # Photometry of the card against the CPU: float32 sums of ~2e4 in another
 # order differ by a few ulp (2e-3 each), which a value near 0 cannot absorb
 # relatively.
@@ -851,6 +877,371 @@ def zstack_phases(tmpl, dev):
                             "exhaustive_chunk": b_numbers(b_chunk)}}}
 
 
+def same_plateaus(a, b):
+    """Two plateau lists: starts and stops equal, heights within 1e-9."""
+    return ([p[:2] for p in a] == [p[:2] for p in b] and
+            np.allclose([p[2] for p in a], [p[2] for p in b], rtol=1e-9,
+                        atol=0))
+
+
+def cpu_model():
+    """The host CPU's name from /proc/cpuinfo, else its architecture."""
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            if line.startswith("model name"):
+                return line.split(":", 1)[1].strip()
+    return platform.machine()
+
+
+def timetrace_phases(tmpl, dev):
+    """The movie front door and both step fitters on the card; emits the
+    "stepfit", "chi_squared", "timetrace", "timetrace_card_vs_cpu" and
+    "cli" (stepfit) lines and returns the kernels' launches per
+    run_timetrace and their numbers at this path's shapes."""
+    from fluorosequencingimageanalysis_torch import stepfitting as sf
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.config import (PipelineConfig,
+                                                            StepfitConfig)
+    from fluorosequencingimageanalysis_torch.models.detect import (
+        EXHAUSTIVE_CHUNK)
+    from fluorosequencingimageanalysis_torch.native.stepchain import (
+        default_threads)
+    from fluorosequencingimageanalysis_torch.ops.background import widen
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        extract_candidates_chunk)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused, candidate_map_plain)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.ops.stepfit_batch import (
+        _ck_and_masks)
+    from fluorosequencingimageanalysis_torch.pipeline.fast_timetrace import (
+        _lc_track_scan, _start_states)
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_chisq_traces, make_movie, make_step_traces)
+
+    host = {"cpu": cpu_model(), "cpu_count": os.cpu_count(),
+            "native_threads": default_threads()}
+
+    # Config 3: batched step fitting through the user's entry point.
+    traces, drops = make_step_traces(SF_N, SF_T, return_truth=True)
+    cfg = PipelineConfig(stepfit=StepfitConfig(**SF_KW))
+    pipe = Pipeline(cfg, device=dev, profile=True)
+    t = time.perf_counter()
+    pipe.stepfit(traces)
+    warm_s = time.perf_counter() - t
+    runs = []
+    for _ in range(SF_REPS):
+        profiling.reset_timings()
+        profiling.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        fits = pipe.stepfit(traces)
+        torch.cuda.synchronize()
+        runs.append({"wall_s": time.perf_counter() - t,
+                     "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+                     "stages_s": {k: v["total"] for k, v in
+                                  profiling.timings().items()},
+                     "counters": profiling.counters()})
+    mirrored = np.concatenate([traces[:, :SF_KW["mirror_start"]][:, ::-1],
+                               traces], axis=1)
+    on_dev = torch.from_numpy(np.ascontiguousarray(mirrored)).to(dev)
+    with torch.no_grad():
+        ck_ms = time_ms(lambda: _ck_and_masks(
+            on_dev, p_threshold=SF_KW["p_threshold"]), 5)
+    del on_dev
+    t = time.perf_counter()
+    on_cpu = Pipeline(cfg, device="cpu").stepfit(traces)
+    cpu_s = time.perf_counter() - t
+    check(len(fits) == len(on_cpu) == SF_N, f"{len(fits)} step fits")
+    worst_ck = 0.0
+    for i, (g, c) in enumerate(zip(fits, on_cpu)):
+        check(g[0] == c[0] and same_plateaus(g[2], c[2]) and
+              same_plateaus(g[3], c[3]),
+              f"trace {i}: card {g[3]}, CPU {c[3]}")
+        worst_ck = max(worst_ck, float(np.max(np.abs(
+            np.asarray(g[1]) - np.asarray(c[1])))))
+    check(worst_ck <= 1e-6, f"CK traces card vs CPU: {worst_ck}")
+    t = time.perf_counter()
+    for i in range(SF_HOST_SAMPLE):
+        m = sf.mirror_photometries(tuple(traces[i].tolist()),
+                                   mirror_size=SF_KW["mirror_start"])
+        ck = sf.chung_kennedy_filter(luminosities=m,
+                                     window_lengths=(2, 4, 8, 16))
+        pl = sf.sliding_t_fitter(
+            luminosity_sequence=ck, window_radius=6,
+            p_threshold=SF_KW["p_threshold"], median_filter_size=None,
+            downsteps_only=False, min_step_magnitude=None)
+        pl = sf.refit_plateaus(m, pl)
+        tf = sf.t_test_filter(luminosities=m, plateaus=pl,
+                              p_threshold=SF_KW["p_threshold"],
+                              drop_sort=True,
+                              no_merge_start=SF_KW["mirror_start"])
+        want = sf.unmirror_plateaus(tf, mirror_size=SF_KW["mirror_start"])
+        check(same_plateaus(fits[i][3], want),
+              f"trace {i}: card {fits[i][3]}, host chain {want}")
+    host_chain_s = (time.perf_counter() - t) / SF_HOST_SAMPLE
+    check(any(len(f[3]) > 1 for f in fits), "some trace has a step")
+    walls = [r["wall_s"] for r in runs]
+    emit("stepfit", shape=[SF_N, SF_T], **SF_KW, dtype="float64",
+         warmup_s=warm_s, wall_s_median=statistics.median(walls),
+         traces_per_s=SF_N / statistics.median(walls), runs=runs,
+         ck_masks_device_ms_median=statistics.median(ck_ms),
+         ck_masks_device_ms_runs=ck_ms,
+         equal_to_cpu_run=SF_N, max_ck_diff_card_vs_cpu=worst_ck,
+         cpu_run_s=cpu_s, equal_to_host_chain=SF_HOST_SAMPLE,
+         host_chain_s_per_trace=host_chain_s,
+         plateaus_mean=float(np.mean([len(f[3]) for f in fits])),
+         planted_step_count_recovered=float(np.mean(
+             [len(f[3]) - 1 == len(d) for f, d in zip(fits, drops)])),
+         host=host,
+         note="wall = Pipeline.stepfit from a host float64 array to the "
+              "Python result lists; stages_s are host-clock totals "
+              "(stepfit/ck+masks is the enqueueing, stepfit/fetch the wait "
+              "for the device); ck_masks_device_ms is the device time of "
+              "the CK filter and the detector alone (CUDA events)")
+
+    # The chi-squared fitter: host work, whatever the Pipeline's device.
+    chi = make_chisq_traces(CHI_N, CHI_T)
+    pipe.chi_squared_stepfit(chi[:64], num_steps=CHI_STEPS)
+    chi_walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        chi_fits = pipe.chi_squared_stepfit(chi, num_steps=CHI_STEPS)
+        chi_walls.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    for i in range(CHI_HOST_SAMPLE):
+        want = sf.chi_squared_step_fitter(tuple(float(v) for v in chi[i]),
+                                          num_steps=CHI_STEPS)
+        check(chi_fits[i] == [tuple(p) for p in want],
+              f"chi-squared trace {i}: {chi_fits[i]}, oracle {want}")
+    emit("chi_squared", shape=[CHI_N, CHI_T], num_steps=CHI_STEPS,
+         wall_s_median=statistics.median(chi_walls), wall_s_runs=chi_walls,
+         traces_per_s=CHI_N / statistics.median(chi_walls),
+         equal_to_host_oracle=CHI_HOST_SAMPLE,
+         host_oracle_s_per_trace=(time.perf_counter() - t) /
+         CHI_HOST_SAMPLE,
+         plateaus_mean=float(np.mean([len(f) for f in chi_fits])),
+         host=host, note="host work only: the native core's threads on "
+                         "the machine's CPU; nothing runs on the card")
+
+    # The movie front door at full width.
+    t = time.perf_counter()
+    movie, truth = make_movie(T=TT_T, n_spots=TT_SPOTS, return_truth=True)
+    synth_s = time.perf_counter() - t
+    T, H, W = movie.shape
+    pipe = Pipeline(device=dev, profile=True)
+    n_iters = pipe.config.detect.num_iters
+    kw = dict(max_candidates=None, **SF_KW)
+    stages = ["api/run_timetrace/" + s for s in
+              ("upload", "detect", "track+photometry", "stepfit",
+               "assemble", "csv")]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "tt.csv")
+        t = time.perf_counter()
+        pipe.run_timetrace(movie, csv_path=csv_path, **kw)
+        warm_s = time.perf_counter() - t
+        for _ in range(TT_REPS):
+            profiling.reset_timings()
+            profiling.reset_counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            candidate_map_fused.launches = 0
+            fit_quality.launches = 0
+            t = time.perf_counter()
+            out = pipe.run_timetrace(movie, csv_path=csv_path, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {"candidate_map": candidate_map_fused.launches,
+                        "fit_quality": fit_quality.launches}
+            st = {k: v["total"] for k, v in profiling.timings().items()}
+            runs.append({
+                "wall_s": wall, "launches": launches,
+                "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+                "stages_s": st, "counters": profiling.counters(),
+                "unnamed_share": 1.0 - sum(st[k] for k in stages) / wall})
+        with open(csv_path, newline="") as fh:
+            table = list(csv.reader(fh))
+    n = out["trace_count"]
+    check(n > 100, f"run_timetrace found {n} traces")
+    for r in runs:
+        check(r["launches"]["candidate_map"] == 1 and
+              r["launches"]["fit_quality"] >= 1,
+              f"frame 0's detection launched both kernels: {r['launches']}")
+        check(r["unnamed_share"] < TT_UNNAMED_SHARE,
+              f"share of the wall no stage names: {r['unnamed_share']}")
+    check(len(table) == 1 + n * T and
+          table[0][:5] == ["Trace #", "Hcoord", "Wcoord", "Frame #",
+                           "Photometry"],
+          f"the timetrace CSV has {len(table)} rows for {n} traces")
+    phot = out["photometries"]
+    check(phot.shape == (n, T) and np.isfinite(phot).all(),
+          "finite (N, T) photometries")
+    rec_h, rec_w = out["traces"]["rec_h"], out["traces"]["rec_w"]
+    present = out["traces"]["present"]
+    check(rec_h.shape == (T, n) and present[0].all(), "tracks of T frames")
+
+    # Planted spots with no planted neighbour within ISOLATED_PX.
+    pos, levels = truth["positions"], truth["levels"]
+    p0 = pos[:, 0]
+    h0 = np.asarray(out["traces"]["h"], np.float64)
+    w0 = np.asarray(out["traces"]["w"], np.float64)
+    near = np.array([np.sort(np.hypot(*(p0 - p).T))[1] for p in p0])
+    iso = np.nonzero(near > ISOLATED_PX)[0]
+    dh = np.abs(p0[iso, None, 0] - h0[None])
+    dw = np.abs(p0[iso, None, 1] - w0[None])
+    cheb = np.maximum(dh, dw)
+    nearest = cheb.argmin(axis=1)
+    started = cheb.min(axis=1) <= TT_START_PX
+    started_euclid = np.hypot(dh, dw).min(axis=1) <= TT_START_PX
+    stayed, steps_equal = [], []
+    for s, j in zip(iso[started], nearest[started]):
+        live = levels[s] > 0
+        d = np.hypot(rec_h[live, j] - pos[s, live, 0],
+                     rec_w[live, j] - pos[s, live, 1])
+        stayed.append(bool(present[live, j].all() and
+                           d.max() <= TT_STAY_PX))
+        fit = out["step_fits"][(out["traces"]["h"][j],
+                                out["traces"]["w"][j])].trace
+        downs = sum(b[2] < a[2] for a, b in zip(fit, fit[1:]))
+        steps_equal.append(downs == len(truth["drops"][s]))
+    check(started.mean() >= 0.95,
+          f"isolated planted spots with a trace starting within "
+          f"{TT_START_PX} px on each axis: {started.mean()}")
+    check(np.mean(stayed) >= 0.90,
+          f"of those traces, within {TT_STAY_PX} px in every live frame: "
+          f"{np.mean(stayed)}")
+
+    # The tracker loop alone: device time, and its device operations.
+    movie_f = widen(torch.from_numpy(movie).to(dev))
+    _, states = _start_states(out["traces"]["h"], out["traces"]["w"], dev)
+    with torch.no_grad():
+        track_ms = time_ms(lambda: _lc_track_scan(movie_f, *states), 5)
+        track_host_ms = host_ms(lambda: _lc_track_scan(movie_f, *states), 5)
+        prof = profile_steps(lambda: _lc_track_scan(movie_f, *states), 3)
+
+    # Both kernels against their twins at this path's shapes: frame 0,
+    # and the exhaustive path's first chunk of it.
+    img = movie_f[:1].contiguous()
+    cm = candidate_map_fused(img, tmpl)
+    err_a = float((cm - candidate_map_plain(img, tmpl)).abs().max())
+    check(err_a == 0.0, f"kernel A vs twin at {tuple(img.shape)} "
+                        f"(max abs err {err_a})")
+    a_ms = time_ms(lambda: candidate_map_fused(img, tmpl), 20)
+    a_plain = time_ms(lambda: candidate_map_plain(img, tmpl), 5)
+    a_bound, a_by = bound(2 * img.numel() * 4, img.numel() * A_OPS_PER_PIXEL)
+    excluded = torch.zeros((1, H * W), dtype=torch.bool, device=dev)
+    hs, ws, valid, remaining, _ = extract_candidates_chunk(
+        cm, excluded, EXHAUSTIVE_CHUNK, 2.0)
+    b = kernel_b_report(img, hs, ws, valid, n_iters, 1, reps=10,
+                        plain_reps=2)
+    cand = int(remaining[0])
+    check(runs[0]["launches"]["fit_quality"] ==
+          max(1, -(-cand // EXHAUSTIVE_CHUNK)),
+          f"{cand} candidates in chunks of {EXHAUSTIVE_CHUNK}: "
+          f"{runs[0]['launches']}")
+    del movie_f, cm
+
+    walls = [r["wall_s"] for r in runs]
+    emit("timetrace", shape=list(movie.shape), dtype=str(movie.dtype),
+         planted=TT_SPOTS, **SF_KW, max_candidates=None, num_iters=n_iters,
+         synth_s=synth_s, warmup_s=warm_s,
+         wall_s_median=statistics.median(walls),
+         traces_per_s=n / statistics.median(walls), trace_count=n,
+         candidates_frame_0=cand, csv_rows=len(table), runs=runs,
+         tracker_loop={"frames": T - 1, "tracks": n,
+                       "device_ms_median": statistics.median(track_ms),
+                       "device_ms_runs": track_ms,
+                       "host_clock_ms_median": track_host_ms,
+                       "device_ops_per_frame":
+                           prof["device_ops_per_step"] / (T - 1),
+                       "device_busy_share": prof["device_busy_share"],
+                       "top_device_us": prof["top_device_us"][:6]},
+         isolated_planted=len(iso),
+         started_within_1px_each_axis=float(started.mean()),
+         started_within_1px_euclidean=float(started_euclid.mean()),
+         stayed_within_1p5px=float(np.mean(stayed)),
+         planted_step_count_recovered=float(np.mean(steps_equal)),
+         note="wall = run_timetrace from a host uint16 movie to the result "
+              "dict and the CSV; stages_s are host-clock totals and "
+              "unnamed_share what the api/run_timetrace/* stages leave of "
+              "the wall; tracker_loop is _lc_track_scan alone on the "
+              "resident float32 movie (CUDA events; device operations and "
+              "busy share from torch.profiler over 3 calls)")
+
+    # The card against the CPU on a reduced movie.
+    small = make_movie(**TT_SMALL)
+    on_card = Pipeline(device=dev).run_timetrace(small, **kw)
+    t = time.perf_counter()
+    on_cpu = Pipeline(device="cpu").run_timetrace(small, **kw)
+    cpu_s = time.perf_counter() - t
+    for k in ("h", "w", "rec_h", "rec_w", "present"):
+        check(np.array_equal(on_card["traces"][k], on_cpu["traces"][k]),
+              f"run_timetrace {k} equal on the card and the CPU")
+    pc, pp = on_card["photometries"], on_cpu["photometries"]
+    check(np.allclose(pc, pp, rtol=1e-6, atol=PHOT_ATOL),
+          f"photometries card vs CPU: {np.abs(pc - pp).max()}")
+    big = np.abs(pp) > 1e3
+    for key, fit in on_cpu["step_fits"].items():
+        got = on_card["step_fits"][key].trace
+        check([p[:2] for p in got] == [p[:2] for p in fit.trace],
+              f"trace {key}: card {got}, CPU {fit.trace}")
+    emit("timetrace_card_vs_cpu", shape=list(small.shape),
+         traces=on_cpu["trace_count"],
+         max_abs_phot_diff=float(np.abs(pc - pp).max()),
+         max_rel_phot_diff_above_1e3=float(
+             (np.abs(pc - pp)[big] / np.abs(pp)[big]).max()),
+         plateau_boundaries_equal=True, cpu_s=cpu_s)
+
+    # The stepfit subcommand in a process of its own.
+    with tempfile.TemporaryDirectory() as tmp:
+        npy = os.path.join(tmp, "phot.npy")
+        np.save(npy, traces[:CLI_STEPFIT_N])
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fluorosequencingimageanalysis_torch",
+             "stepfit", "--npy", npy, "--output-dir", tmp, "--mirror-start",
+             str(SF_KW["mirror_start"]), "--chung-kennedy",
+             str(SF_KW["chung_kennedy"]), "--p-threshold",
+             str(SF_KW["p_threshold"])], capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t
+        check(proc.returncode == 0, "the stepfit subcommand exits 0: " +
+              proc.stderr[-2000:])
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(summary["csv"], newline="") as fh:
+            table = list(csv.reader(fh))
+    want_steps = sum(len(f[3]) - 1 for f in fits[:CLI_STEPFIT_N])
+    check(summary["traces"] == CLI_STEPFIT_N and
+          len(table) == 1 + CLI_STEPFIT_N * SF_T and
+          summary["steps"] == want_steps,
+          f"the stepfit CSV: {len(table)} rows, {summary['steps']} steps "
+          f"(the API's: {want_steps})")
+    emit("cli", command="stepfit", traces=CLI_STEPFIT_N,
+         rows=len(table) - 1, steps=summary["steps"], wall_s=cli_s,
+         note="the timetrace subcommand reads image files through imageio, "
+              "which this machine lacks: it is tested on the CPU only")
+
+    return {
+        "launches": {"timetrace": runs[0]["launches"]},
+        "kernels": {
+            "candidate_map": {"timetrace": {
+                "shape": list(img.shape), "max_abs_err": err_a,
+                "ms": statistics.median(a_ms),
+                "plain_ms": statistics.median(a_plain), "bound_ms": a_bound,
+                "bound_by": a_by,
+                "share_of_bound": a_bound / statistics.median(a_ms)}},
+            "fit_quality": {"timetrace": {
+                "fits": b["fits"], "num_iters": n_iters,
+                "max_abs_err": b["max_abs_err_all_outputs"],
+                "ms": b["ms_median"], "plain_ms": b["plain_ms_median"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "share_of_bound": b["share_of_bound"]}}}}
+
+
 def host_profile(pipe, stack, kw, top=15):
     """cProfile of run_experiment's host half for one group, run alone on
     this thread (no step beside it): the spot lists, linking, fill-in,
@@ -938,10 +1329,10 @@ def main():
     tmpl = DEFAULT_CORRELATION_MATRIX
 
     # 1. Device and build: one compiler per source (nvcc for the kernels,
-    # g++ for the tracker), all started together.
+    # g++ for the tracker and the two step-fit cores), all started together.
     t0 = time.perf_counter()
-    _build.build_all(KERNELS + ("tracklink",))
-    for name in KERNELS + ("tracklink",):
+    _build.build_all(KERNELS + HOST_CORES)
+    for name in KERNELS + HOST_CORES:
         _build.load(name)
     build_s = time.perf_counter() - t0
     ptxas = {name: _build.ptxas_info(name) for name in KERNELS}
@@ -1113,7 +1504,10 @@ def main():
     # 8. The z-stack and single-image front doors, config 2.
     zs = zstack_phases(tmpl, dev)
 
-    # 9. Optional: where the device's time goes within run_stack.
+    # 9. The movie front door and the step fitters, config 3.
+    tt = timetrace_phases(tmpl, dev)
+
+    # 10. Optional: where the device's time goes within run_stack.
     if args.profile:
         prof = profile_steps(lambda: pipe.run_stack(x_host), 3)
         prof["device_busy_ms_per_step"] = prof["device_busy_us"] / 3e3
@@ -1138,8 +1532,9 @@ def main():
          "launches_experiment": exp["launches"]["candidate_map"],
          "experiment": exp["kernels"]["candidate_map"],
          **{"launches_" + path: n["candidate_map"]
-            for path, n in zs["launches"].items()},
-         **zs["kernels"]["candidate_map"]},
+            for path, n in {**zs["launches"], **tt["launches"]}.items()},
+         **zs["kernels"]["candidate_map"],
+         **tt["kernels"]["candidate_map"]},
         {"name": "fit_quality", "route": "cuda",
          "source": "fluorosequencingimageanalysis_torch/csrc/fit_quality.cu",
          "replaces": "fluorosequencingimageanalysis_tpu/models/"
@@ -1154,8 +1549,8 @@ def main():
          "launches_experiment": exp["launches"]["fit_quality"],
          "experiment": exp["kernels"]["fit_quality"],
          **{"launches_" + path: n["fit_quality"]
-            for path, n in zs["launches"].items()},
-         **zs["kernels"]["fit_quality"]},
+            for path, n in {**zs["launches"], **tt["launches"]}.items()},
+         **zs["kernels"]["fit_quality"], **tt["kernels"]["fit_quality"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,16 +9,21 @@ same flags and the same JSON summaries, plus ``--device`` (default cuda):
     python -m fluorosequencingimageanalysis_torch detect field.tif
     python -m fluorosequencingimageanalysis_torch zstack frames.npy \\
         --output spots.csv
+    python -m fluorosequencingimageanalysis_torch timetrace \\
+        --frames movie.tif --output-dir out
+    python -m fluorosequencingimageanalysis_torch stepfit tracks.csv
 
 run-experiment groups files by the reference's directory=cycle,
 filename=field convention (flexlibrary.py:1105-1154), runs the one-call
 array-native path (registration + detect/fit + tracking + interpolation +
 categories), and writes the track-photometries and category-counts CSVs.
 detect writes the psfs pkl/csv/png artifacts next to each image; zstack
-writes a per-spot CSV. Raw uint16 images upload as-is and are cast on the
-device. The other subcommands of the JAX package (timetrace, stepfit,
-fluor-counts, background-correct, remainder-correct, simulate) are not
-registered yet.
+writes a per-spot CSV; timetrace runs the movie workflow (detect, LC
+tracking, photometry, step fits) and writes the timetrace CSV; stepfit
+step-fits the traces of a track CSV or an .npy matrix and writes the
+per-frame step-fit CSV. Raw uint16 images upload as-is and are cast on the
+device. The other subcommands of the JAX package (fluor-counts,
+background-correct, remainder-correct, simulate) are not registered yet.
 """
 
 from __future__ import annotations
@@ -49,18 +54,6 @@ def _load_stack(files):
                                 for p in field_indexed[f]]))
     stack = np.stack(fields)  # [F, C, H, W]
     return stack, stack.shape[1]
-
-
-def _method_override(args):
-    """--photometry-method as a from_cli override, only when given.
-
-    The flag default is None so an explicit ``'method'`` key inside
-    --photometry-parameters (the reference's dict surface,
-    basic_experiment_script.py:150-158) is honored instead of being
-    silently clobbered by the flag's default."""
-    if args.photometry_method is None:
-        return {}
-    return {"method": args.photometry_method}
 
 
 def _method_override(args):
@@ -212,6 +205,135 @@ def _cmd_zstack(args):
     return 0
 
 
+def _cmd_timetrace(args):
+    from .api import Pipeline
+    from .config import PipelineConfig, PhotometryConfig
+    from .utils.imageio import read_stack_array
+
+    # One multi-page TIFF or a list of per-frame files; read_stack_array
+    # returns (frames, H, W) either way.
+    movie = np.concatenate([read_stack_array(p) for p in args.frames])
+    config = PipelineConfig(
+        photometry=PhotometryConfig.from_cli(
+            args.photometry_parameters, **_method_override(args)))
+    pipe = Pipeline(config=config, device=args.device, profile=args.profile)
+    os.makedirs(args.output_dir, exist_ok=True)
+    csv_path = os.path.join(args.output_dir, args.csv)
+    out = pipe.run_timetrace(
+        movie, csv_path=csv_path, search_radius=args.search_radius,
+        s_n_cutoff=args.sn_cutoff, max_candidates=args.max_candidates,
+        photometry_min=args.photometry_minimum,
+        mirror_start=args.mirror_start, chung_kennedy=args.chung_kennedy,
+        p_threshold=args.p_threshold)
+    summary = {"frames": int(movie.shape[0]),
+               "traces": out["trace_count"], "csv": csv_path}
+    if args.profile:
+        from .utils import profiling
+        summary["stages_sec"] = {k: round(v["total"], 3)
+                                 for k, v in profiling.timings().items()}
+    print(json.dumps(summary, default=str))
+    return 0
+
+
+def _cmd_stepfit(args):
+    """Batched step fitting over traces from a track CSV or an .npy
+    matrix; emits the reference's per-frame step-fit CSV schema
+    (flexlibrary.py:3550-3709 columns, plus Channel/Field provenance
+    when the input is a track CSV)."""
+    import csv as csv_module
+
+    from .api import Pipeline
+    from .config import PipelineConfig, StepfitConfig
+    from .pipeline.traces import PhotometryTrace, PlateauTrace, Trace
+
+    if (args.tracks_csv is None) == (args.npy is None):
+        raise SystemExit("give exactly one of TRACKS_CSV or --npy")
+    if args.npy:
+        phot = np.load(args.npy)
+        if phot.ndim != 2:
+            raise SystemExit("--npy must hold an (N, T) photometry matrix")
+        meta = [("", "", i, "") for i in range(phot.shape[0])]
+    else:
+        from .inference.photometries import read_track_photometries_csv
+        _, d2 = read_track_photometries_csv(
+            args.tracks_csv,
+            channels=[args.channel] if args.channel else None)
+        rows = [d2[r] for r in sorted(d2)]
+        if not rows:
+            raise SystemExit("no traces in " + args.tracks_csv)
+        phot = np.asarray([row[5] for row in rows], np.float64)
+        meta = [(row[0], row[1], row[2], row[3]) for row in rows]
+
+    if args.method == "chi_squared":
+        # The reference's chi_squared flow (flexlibrary.py:3756-3789):
+        # optional CK smoothing passes, the Kerssemakers fitter on the
+        # smoothed trace, refit on the raw trace. mirror_start is
+        # unsupported with this method, with the reference's own error.
+        if args.mirror_start > 0:
+            raise SystemExit(
+                "chi_squared not supported with mirror_start because I'm "
+                "trying to get this thing to work asap.")
+        import torch
+
+        from . import stepfitting as sflib
+        from ._device import resolve_device
+        from .ops.stepfit_batch import chung_kennedy_batch
+
+        work = phot
+        dev = resolve_device(args.device)
+        for _ in range(args.chung_kennedy):
+            # float32 smoothing passes, as the JAX package's subcommand.
+            work = chung_kennedy_batch(torch.from_numpy(
+                work.astype(np.float32)).to(dev)).cpu().numpy().astype(
+                    np.float64)
+        fits = sflib.chi_squared_fit_batch(
+            work, num_steps=args.num_steps,
+            min_step_length=args.min_step_length,
+            min_step_magnitude=args.min_step_magnitude,
+            ignore_counterfits=args.ignore_counterfits)
+        results = [
+            (tuple(phot[i]), tuple(work[i]), fits[i],
+             sflib.refit_plateaus(list(phot[i]), fits[i]))
+            for i in range(len(fits))
+        ]
+    else:
+        pipe = Pipeline(PipelineConfig(stepfit=StepfitConfig(
+            mirror_start=args.mirror_start, chung_kennedy=args.chung_kennedy,
+            p_threshold=args.p_threshold)), device=args.device,
+            profile=args.profile)
+        results = pipe.stepfit(phot)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    csv_path = os.path.join(args.output_dir, args.csv)
+    n_steps = 0
+    with open(csv_path, "w", newline="") as fh:
+        writer = csv_module.writer(fh)
+        writer.writerow(["Trace #", "Channel", "Field", "Hcoord", "Wcoord",
+                         "Frame #", "Photometry", "Step #",
+                         "Plateau Height", "Step Size", "Plateau Length",
+                         "Overall Fit R^2"])
+        for t, ((channel, field, h, w), (phots, _ck, _pl, t_filtered)) in \
+                enumerate(zip(meta, results)):
+            sf = PlateauTrace(t_filtered, h, w)
+            ptrace = PhotometryTrace(tuple(phots), h, w)
+            r_2 = Trace.coefficient_of_determination(ptrace, sf)
+            sf_starts = sf.plateau_starts()
+            ls_num, ls_pos, ls_mag = sf.last_step_info(0)
+            (pa, po, ph), _pi = sf.frame_plateau(0)
+            plateau_length = po - pa + 1
+            n_steps += max(len(t_filtered) - 1, 0)
+            for f in range(len(phots)):
+                if f in sf_starts:
+                    ls_num, ls_pos, ls_mag = sf.last_step_info(f)
+                    (pa, po, ph), _pi = sf.frame_plateau(f)
+                    plateau_length = po - pa + 1
+                writer.writerow([t, channel, field, h, w, f, phots[f],
+                                 ls_num, ph, ls_mag, plateau_length, r_2])
+    print(json.dumps({"traces": len(results), "steps": n_steps,
+                      "csv": csv_path}))
+    return 0
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="python -m fluorosequencingimageanalysis_torch",
@@ -334,6 +456,83 @@ def build_parser():
                     help="where the work runs: cuda (default), cuda:N "
                          "or cpu")
     zs.set_defaults(func=_cmd_zstack)
+
+    tt = sub.add_parser(
+        "timetrace",
+        help="movie workflow: detect + LC tracking + step fits + CSV")
+    tt.add_argument("--frames", nargs="+", required=True,
+                    help="movie frame image files, in order")
+    tt.add_argument("--output-dir", default=".")
+    tt.add_argument("--csv", default="timetrace.csv",
+                    help="timetrace CSV filename")
+    tt.add_argument("--photometry-method", default=None,
+                    choices=["mexican_hat", "simple", "maximum",
+                             "gaussian_volume", "sigmas", "sextractor"],
+                    help="photometry metric (default mexican_hat; a "
+                         "'method' key in --photometry-parameters wins "
+                         "when this flag is not given)")
+    tt.add_argument("--search-radius", type=int, default=3,
+                    help="luminosity-centroid search radius")
+    tt.add_argument("--sn-cutoff", type=float, default=3.0,
+                    help="Illumina S/N gate for accepting a tracked spot")
+    tt.add_argument("--max-candidates", type=int, default=None)
+    tt.add_argument("--photometry-parameters", default=None,
+                    help="dict literal of PhotometryConfig fields "
+                         "(reference --photometry_parameters)")
+    tt.add_argument("--photometry-minimum", type=float, default=None)
+    tt.add_argument("--mirror-start", type=int, default=None,
+                    help="mirror this many frames before step fitting")
+    tt.add_argument("--chung-kennedy", type=int, default=None,
+                    help="number of Chung-Kennedy filter passes")
+    tt.add_argument("--p-threshold", type=float, default=None,
+                    help="t-test merge p threshold")
+    tt.add_argument("--profile", action="store_true")
+    tt.add_argument("--device", default="cuda",
+                    help="where the work runs: cuda (default), cuda:N "
+                         "or cpu")
+    tt.set_defaults(func=_cmd_timetrace)
+
+    sf = sub.add_parser(
+        "stepfit",
+        help="batched step fitting over traces from a track CSV or .npy")
+    sf.add_argument("tracks_csv", nargs="?", default=None,
+                    help="track-photometries CSV (run-experiment output)")
+    sf.add_argument("--npy", default=None,
+                    help="(N, T) photometry matrix .npy instead of a CSV")
+    sf.add_argument("--channel", default=None,
+                    help="restrict the CSV to this channel")
+    sf.add_argument("--output-dir", default=".")
+    sf.add_argument("--csv", default="step_fits.csv",
+                    help="per-frame step-fit CSV filename")
+    sf.add_argument("--mirror-start", type=int, default=0,
+                    help="mirror this many frames before fitting")
+    sf.add_argument("--chung-kennedy", type=int, default=0,
+                    help="number of Chung-Kennedy filter passes")
+    sf.add_argument("--p-threshold", type=float, default=0.01)
+    sf.add_argument("--method", choices=["t_test", "chi_squared"],
+                    default="t_test",
+                    help="step-fit algorithm (the reference's "
+                         "save_stepfits_as_csv method choices, "
+                         "flexlibrary.py:3762): 't_test' = CK + "
+                         "sliding-t + refit + t-merge; 'chi_squared' = "
+                         "the Kerssemakers best-fit/counter-fit fitter "
+                         "(native batched core) + refit on the raw "
+                         "trace")
+    sf.add_argument("--num-steps", type=int, default=10,
+                    help="chi_squared: maximum steps to consider "
+                         "(reference default 10)")
+    sf.add_argument("--min-step-length", type=int, default=2,
+                    help="chi_squared: minimum plateau length in frames")
+    sf.add_argument("--min-step-magnitude", type=float, default=0.0,
+                    help="chi_squared: ignore steps smaller than this")
+    sf.add_argument("--ignore-counterfits", action="store_true",
+                    help="chi_squared: take the longest fit instead of "
+                         "the best step-indicator S")
+    sf.add_argument("--profile", action="store_true")
+    sf.add_argument("--device", default="cuda",
+                    help="where the work runs: cuda (default), cuda:N "
+                         "or cpu")
+    sf.set_defaults(func=_cmd_stepfit)
 
     return parser
 

@@ -1,8 +1,9 @@
 """Build and load the port's native sources (csrc/) at first use.
 
-Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host C++,
-the greedy tracker) exposes a plain C entry point and is compiled, by
-``nvcc`` or by the host compiler ``g++`` respectively, into
+Each ``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host C++:
+the greedy tracker and the two step-fit cores) exposes a plain C entry
+point and is compiled, by ``nvcc`` or by the host compiler ``g++``
+respectively, into
 ``_build/<name>-<hash>.so`` inside this package (git-ignored), where the
 hash covers the source, for CUDA sources the shared headers
 (``csrc/*.cuh``), and the compiler flags; it is then loaded with ctypes.
@@ -41,8 +42,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_FLAGS = {"fit_quality": ("-fmad=false",)}
 # Host C++: no -ffast-math, and -ffp-contract=off so that a*b + c rounds
 # twice on every host architecture (the tracker's distances are the
-# reference's plain sqrt(dh*dh + dw*dw)).
-HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
+# reference's plain sqrt(dh*dh + dw*dw); the step-fit cores promise the
+# Python chain's float results bit for bit). No -march=native: a build is
+# keyed by source and flags, not by CPU, and the build directory may be
+# copied to a machine with another CPU. -pthread: the step-fit cores
+# thread their batches.
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off",
+              "-pthread")
 
 _libs: dict = {}
 _lock = threading.Lock()

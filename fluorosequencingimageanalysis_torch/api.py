@@ -1,14 +1,17 @@
 """The port's front door: ``Pipeline(device=...)``.
 
 Counterpart of fluorosequencingimageanalysis_tpu/api.py ``Pipeline``'s
-``run_stack``, ``run_zstack`` and ``run_experiment``, on one device, with
-its content-hash artifact store (utils/checkpoint.py). The JAX Pipeline's
-mesh padding has no counterpart.
+``run_stack``, ``run_zstack``, ``run_experiment``, ``run_timetrace``,
+``run_timetraces``, ``run_files``, ``stepfit`` and ``chi_squared_stepfit``,
+on one device, with its content-hash artifact store (utils/checkpoint.py).
+The JAX Pipeline's mesh padding has no counterpart.
 
     from fluorosequencingimageanalysis_torch.api import Pipeline
     out = Pipeline(device="cuda").run_stack(stack)       # [F, C, H, W]
     fits = Pipeline(device="cuda").run_zstack(frames)    # [T, H, W]
     res = Pipeline(device="cuda").run_experiment(stack, csv_path="t.csv")
+    tt = Pipeline(device="cuda").run_timetrace(movie, csv_path="tt.csv")
+    steps = Pipeline(device="cuda").stepfit(photometries)    # (N, T)
 """
 
 from __future__ import annotations
@@ -117,8 +120,8 @@ class _GroupUploader:
 
 
 class Pipeline:
-    """Config-driven detection, z-stack and experiment paths on one
-    device, optionally cached in an artifact store."""
+    """Config-driven detection, z-stack, experiment, movie and step-fit
+    paths on one device, optionally cached in an artifact store."""
 
     def __init__(self, config: PipelineConfig | None = None,
                  device="cuda", store=None, profile: bool = False):
@@ -854,3 +857,277 @@ class Pipeline:
                 "invalid_fields_mask": invalid_fields_mask,
                 "csv_path": csv_path,
                 "category_csv_path": category_csv_path}
+
+    def run_timetrace(self, movie, csv_path=None, search_radius=3,
+                      s_n_cutoff=3.0, max_candidates=None,
+                      photometry_min="config", mirror_start=None,
+                      chung_kennedy=None, p_threshold=None,
+                      include_step_fits=True, include_intermediates=True):
+        """The movie workflow, one call: first-frame detect -> batched
+        luminosity-centroid tracking (the whole movie enqueued on the
+        device without a host read) -> per-trace photometry -> batched step
+        fitting -> the timetrace CSV.
+
+        Semantics are basic_timetrace_script's (initial spots from the
+        device detector's psfs with their centers; LC tracking per
+        flexlibrary.py:1172-1317; Trace.photometries zeros for None
+        frames; the mirror -> Chung-Kennedy -> sliding-t -> refit ->
+        t-merge chain per flexlibrary.py:3642-3713); CSV rows equal the
+        classes' TimetraceExperiment.save_experiment_as_csv.
+
+        Arguments:
+            movie: [T, H, W] array or tensor, one continuously-filmed
+                field. Raw camera dtypes upload as they are (from pinned
+                memory on a CUDA device) and are cast to float32 there; a
+                tensor already on the device is used where it lies.
+            max_candidates: None (default) defers to
+                config.detect.single_field_cap, itself None by default,
+                meaning exhaustive detection: the chunked path fits
+                every above-threshold candidate (the reference's uncapped
+                semantics). An integer (per call or in the config) caps a
+                single bucket with a truncation warning on overflow.
+            csv_path: if given, write the Trace#/Hcoord/Wcoord/Frame#/
+                Photometry [...] CSV there (include_step_fits and
+                include_intermediates add the reference's step-fit and
+                intermediate columns).
+            search_radius, s_n_cutoff: LC tracking parameters
+                (flexlibrary lc_create_traces defaults).
+            mirror_start, chung_kennedy, p_threshold: step-fit chain
+                parameters; None means config.stepfit's values.
+            photometry_min: floor applied to the per-frame photometries
+                before step fitting (flexlibrary stepfit_tracks'
+                photometry_min); defaults to
+                config.photometry.photometry_min, pass None to disable
+                flooring regardless of config.
+
+        With ``profile``, host-clock stages: "api/run_timetrace/upload",
+        ".../detect", ".../track+photometry" (window metrics; ".../track"
+        and ".../photometry" for the others), ".../stepfit",
+        ".../assemble" (the result objects) and ".../csv".
+
+        Returns a dict: traces {h, w, present, rec_h, rec_w},
+        photometries (N, T), step_fits, step_fit_intermediates,
+        trace_count, csv_path.
+        """
+        from .models.detect import find_peptide_centers
+        from .ops.background import widen
+        from .ops.stepfit_batch import stepfit_batched
+        from .pipeline.experiment import TimetraceExperiment
+        from .pipeline.fast_timetrace import (lc_track,
+                                              lc_track_and_photometry,
+                                              timetrace_photometries)
+        from .pipeline.traces import PhotometryTrace, PlateauTrace
+
+        sf = self.config.stepfit
+        phot = self.config.photometry
+        mirror_start = (sf.mirror_start if mirror_start is None
+                        else mirror_start)
+        chung_kennedy = (sf.chung_kennedy if chung_kennedy is None
+                         else chung_kennedy)
+        p_threshold = sf.p_threshold if p_threshold is None else p_threshold
+        if isinstance(photometry_min, str):  # the "config" sentinel
+            photometry_min = phot.photometry_min
+
+        movie = _normalize_stack(movie)
+        if movie.ndim != 3:
+            raise ValueError("movie must be [frames, H, W]")
+        T = movie.shape[0]
+        with self._stage("api/run_timetrace/upload"), torch.no_grad():
+            # One upload of the raw frames (half the bytes of float32 for
+            # uint16), widened on the device.
+            movie_dev = widen(_GroupUploader(movie, [0], T,
+                                             self.device).take(0))
+        with self._stage("api/run_timetrace/detect"):
+            det = self.config.detect
+            # The arrays path: the psfs-dict key semantics without the
+            # sub- and fit-image materialisation.
+            h0, w0, fits, _count = find_peptide_centers(
+                movie_dev[0],
+                median_filter_size=det.median_filter_size, c_std=det.c_std,
+                r_2_threshold=det.r_2_threshold,
+                consolidation_radius=det.consolidation_radius,
+                max_candidates=(max_candidates if max_candidates is not None
+                                else det.single_field_cap),
+                num_iters=det.num_iters, device=None)
+        if len(h0) == 0:
+            if csv_path is not None:
+                # The class path still writes a header-only CSV for an
+                # empty experiment; a promised file must exist. The
+                # intermediate columns are keyed off the first trace's
+                # dict (flexlibrary.py:3544): with no trace there are none.
+                with self._stage("api/run_timetrace/csv"):
+                    TimetraceExperiment(
+                        frames=[None] * T, spot_traces=[], step_fits={},
+                        step_fit_intermediates={}
+                    ).save_experiment_as_csv(
+                        csv_path, include_step_fits=include_step_fits,
+                        include_intermediates=None,
+                        photometry_method=phot.method)
+            return {"traces": {"h": [], "w": [], "present": None,
+                               "rec_h": None, "rec_w": None},
+                    "photometries": np.zeros((0, T)),
+                    "step_fits": {}, "step_fit_intermediates": {},
+                    "trace_count": 0, "csv_path": csv_path}
+        if phot.method in ("mexican_hat", "simple", "maximum"):
+            # Fused: the tracked positions stay on the device and feed the
+            # window gathers (values equal the two-step path's).
+            with self._stage("api/run_timetrace/track+photometry"):
+                rec_h, rec_w, present, photometries = \
+                    lc_track_and_photometry(
+                        movie_dev, h0, w0, phot.method,
+                        search_radius=search_radius,
+                        s_n_cutoff=s_n_cutoff,
+                        photometry_radius=phot.radius,
+                        photometry_brim=phot.brim_size,
+                        photometry_min=photometry_min)
+        else:
+            with self._stage("api/run_timetrace/track"):
+                rec_h, rec_w, present = lc_track(
+                    movie_dev, h0, w0, search_radius=search_radius,
+                    s_n_cutoff=s_n_cutoff)
+            with self._stage("api/run_timetrace/photometry"):
+                photometries = timetrace_photometries(
+                    movie_dev, rec_h, rec_w, present, phot.method,
+                    initial_fits=fits, photometry_radius=phot.radius,
+                    photometry_brim=phot.brim_size,
+                    photometry_min=photometry_min,
+                    aperture_radius=phot.aperture_radius,
+                    box_size=phot.box_size, filter_size=phot.filter_size)
+        with self._stage("api/run_timetrace/stepfit"):
+            results = stepfit_batched(photometries,
+                                      mirror_start=mirror_start,
+                                      chung_kennedy=chung_kennedy,
+                                      p_threshold=p_threshold,
+                                      window_radius=sf.window_radius,
+                                      device=self.device)
+        with self._stage("api/run_timetrace/assemble"):
+            step_fits = {}
+            intermediates = {}
+            spot_traces = []
+            for (hh, ww), (phots, ck, plateaus, t_filtered) in zip(
+                    zip(h0, w0), results):
+                hw = (hh, ww)
+                if hw in step_fits:
+                    raise Exception("Two tracks have initial Spots with "
+                                    "identical (h, w).")
+                step_fits[hw] = PlateauTrace(t_filtered, hh, ww)
+                intermediates[hw] = {
+                    "photometries": PhotometryTrace(phots, hh, ww),
+                    "ck_filtered_photometries": PhotometryTrace(ck, hh, ww),
+                    "plateaus": PlateauTrace(plateaus, hh, ww),
+                    "t_filtered_plateaus": PlateauTrace(t_filtered, hh, ww),
+                }
+                # ``phots`` is the row of ``photometries`` as floats.
+                spot_traces.append(PhotometryTrace(phots, hh, ww))
+        if csv_path is not None:
+            with self._stage("api/run_timetrace/csv"):
+                TimetraceExperiment(
+                    frames=[None] * T, spot_traces=spot_traces,
+                    step_fits=step_fits,
+                    step_fit_intermediates=intermediates
+                ).save_experiment_as_csv(
+                    csv_path, include_step_fits=include_step_fits,
+                    include_intermediates=include_intermediates,
+                    photometry_method=phot.method)
+        return {"traces": {"h": h0, "w": w0, "present": present,
+                           "rec_h": rec_h, "rec_w": rec_w},
+                "photometries": photometries, "step_fits": step_fits,
+                "step_fit_intermediates": intermediates,
+                "trace_count": len(spot_traces), "csv_path": csv_path}
+
+    def run_timetraces(self, movies, csv_paths=None, prefetch=None,
+                       **kwargs):
+        """Batch movie front door: run_timetrace over a sequence of movies
+        (one TIRF run films many fields).
+
+        ``prefetch``: upload movie k+1 (raw camera dtype, from pinned
+        memory on a side stream) while movie k computes. None (default)
+        means one movie ahead on a CUDA device and no prefetch on the CPU.
+
+        Arguments:
+            movies: iterable of [T, H, W] arrays (dtypes may differ).
+            csv_paths: optional list, one output CSV path per movie.
+            kwargs: forwarded to run_timetrace.
+
+        Returns a list of run_timetrace result dicts, in order.
+        """
+        if "csv_path" in kwargs:
+            raise TypeError(
+                "run_timetraces takes csv_paths (one per movie), "
+                "not csv_path")
+        movies = [_normalize_stack(m) for m in movies]
+        if csv_paths is not None and len(csv_paths) != len(movies):
+            raise ValueError("csv_paths must have one entry per movie")
+        if prefetch is None:
+            prefetch = self.device.type == "cuda"
+
+        def start_upload(m):
+            if m.ndim != 3:
+                raise ValueError("movie must be [frames, H, W]")
+            up = _GroupUploader(m, [0], m.shape[0], self.device)
+            up.upload(0)
+            return up
+
+        outs = []
+        ahead = start_upload(movies[0]) if prefetch and movies else None
+        for i, movie in enumerate(movies):
+            cur = ahead.take(0) if ahead is not None else movie
+            if prefetch:
+                ahead = (start_upload(movies[i + 1])
+                         if i + 1 < len(movies) else None)
+            outs.append(self.run_timetrace(
+                cur, csv_path=None if csv_paths is None else csv_paths[i],
+                **kwargs))
+        return outs
+
+    def run_files(self, paths_by_cycle, **kwargs):
+        """Like run_stack, from image files: paths_by_cycle is a list (per
+        cycle) of lists (per field) of image paths."""
+        from .utils.imageio import read_image_array
+        cycles = [[read_image_array(p) for p in cycle]
+                  for cycle in paths_by_cycle]
+        n_fields = {len(c) for c in cycles}
+        if len(n_fields) != 1:
+            raise ValueError("every cycle must have the same field count")
+        stack = np.stack([np.stack(c) for c in cycles], axis=1)
+        return self.run_stack(stack, **kwargs)
+
+    # -- traces --------------------------------------------------------------
+
+    def stepfit(self, photometries):
+        """Batched step fitting over an (N, T) photometry array with
+        config.stepfit's parameters.
+
+        Returns a list of N (photometries, ck_filtered, plateaus,
+        t_filtered_plateaus) tuples (ops.stepfit_batch.stepfit_batched).
+        """
+        from .ops.stepfit_batch import stepfit_batched
+        sf = self.config.stepfit
+        with self._stage("api/stepfit"):
+            return stepfit_batched(np.asarray(photometries, np.float64),
+                                   mirror_start=sf.mirror_start,
+                                   chung_kennedy=sf.chung_kennedy,
+                                   p_threshold=sf.p_threshold,
+                                   window_radius=sf.window_radius,
+                                   device=self.device)
+
+    def chi_squared_stepfit(self, photometries, num_steps_multiplier=1,
+                            num_steps=None, min_step_length=2,
+                            min_step_magnitude=0.0,
+                            ignore_counterfits=False):
+        """Batched Kerssemakers chi-squared step fitting over an (N, T)
+        photometry array (the reference's alternative step-fit method,
+        stepfitting_library.py:342-505). Returns a list of N step fits
+        (plateau-triple lists), bit-equal per trace to
+        stepfitting.chi_squared_step_fitter. Host work, whatever the
+        Pipeline's device: the native core threads the batch
+        (stepfitting.chi_squared_fit_batch)."""
+        from .stepfitting import chi_squared_fit_batch
+
+        with self._stage("api/chi_squared_stepfit"):
+            return chi_squared_fit_batch(
+                np.asarray(photometries, np.float64),
+                num_steps_multiplier=num_steps_multiplier,
+                num_steps=num_steps, min_step_length=min_step_length,
+                min_step_magnitude=min_step_magnitude,
+                ignore_counterfits=ignore_counterfits)

@@ -5,7 +5,8 @@ kernels): mexican hat (sum of the crown minus n_crown times the median of
 the brim; 19x19 window, 7x7 crown, 312 brim pixels by default), simple (sum
 of the square) and maximum (sum of the top-k pixels). Windows are gathered
 with ``lax.dynamic_slice`` semantics; callers keep centers ``radius`` from
-every edge. The ``*_host`` functions measure one numpy image at one center
+every edge. ``luminosity_centroid_batch`` is the movie tracker's centroid
+measurement. The ``*_host`` functions measure one numpy image at one center
 with the reference's clipped-slice semantics at the edges.
 """
 
@@ -16,6 +17,7 @@ import torch
 
 from .candidates import gather_patches_dynslice
 from .lm import _median
+from .quality import illumina_s_n
 
 
 def crown_flat_indices(radius: int, brim_size: int) -> np.ndarray:
@@ -78,6 +80,31 @@ def maximum_batch(image, hs, ws, radius=5, top=1):
     """Sum of the top-k pixels in each square."""
     return patch_reduction("maximum", radius, top=top)(
         _flat_windows(image, hs, ws, radius))
+
+
+def luminosity_centroid_batch(image, hs, ws, radius=3, with_sn=True):
+    """Centroid of pixel mass and Illumina S/N in squares around (hs, ws).
+
+    The timetrace tracker's measurement (flexlibrary.py:1172-1259):
+    returns (centroid_h, centroid_w) in absolute image coordinates and the
+    S/N of the (2*radius+1)^2 slice, in the image's dtype. Interior spots
+    only.
+
+    with_sn=False skips the S/N reduction and returns None in its slot:
+    the tracker's gate measures S/N at the rounded centroid on the spot's
+    own slice (flexlibrary.py:1247), not on this window.
+    """
+    patches = gather_patches_dynslice(image, hs, ws, radius=radius)
+    d = 2 * radius + 1
+    dt = patches.dtype
+    total = torch.sum(patches.reshape(-1, d * d), dim=-1)
+    idx = torch.arange(d, dtype=dt, device=patches.device)
+    ch = torch.sum(patches * idx[None, :, None], dim=(-2, -1)) / total
+    cw = torch.sum(patches * idx[None, None, :], dim=(-2, -1)) / total
+    sn = illumina_s_n(patches) if with_sn else None
+    abs_h = ch + hs.to(dt) - radius
+    abs_w = cw + ws.to(dt) - radius
+    return abs_h, abs_w, sn
 
 
 # ---------------------------------------------------------------------------

@@ -7,14 +7,17 @@ the same fields). Ignored:
 - ``detect.use_pallas`` and ``detect.gather_strategy``: backend choices of
   the JAX package; the port takes its CUDA kernels on CUDA tensors and
   their plain twins on CPU tensors;
-- ``detect.single_field_cap`` and the stepfit / lognormal sections:
-  surfaces the port does not have yet.
+- the lognormal section: a surface the port does not have yet.
+  (``detect.single_field_cap`` and the stepfit section are read by
+  ``api.Pipeline.run_timetrace`` and ``stepfit``.)
 
 ``port_config`` turns either package's config into the port's classes, and
 ``spot_find_result`` / ``numpy_spot_find_result`` carry a SpotFindResult
 between the packages by its field names (the JAX package returns numpy or
 jax arrays, the port tensors or numpy), so tests can feed both sides the
-same thing. Nothing here imports the JAX package.
+same thing. ``timetrace_result_arrays`` flattens either package's
+``run_timetrace`` result into comparable numpy arrays. Nothing here
+imports the JAX package.
 """
 
 from __future__ import annotations
@@ -84,3 +87,37 @@ def numpy_spot_find_result(res, cls=SpotFindResult):
     """``res`` with host numpy fields, as ``cls`` (pass the JAX package's
     SpotFindResult class to go back to it)."""
     return cls(*_numpy_fields(res))
+
+
+def _plateau_arrays(plateaus):
+    """(starts, stops, heights) arrays of a plateau-triple list."""
+    starts = np.asarray([p[0] for p in plateaus], np.int64)
+    stops = np.asarray([p[1] for p in plateaus], np.int64)
+    heights = np.asarray([p[2] for p in plateaus], np.float64)
+    return starts, stops, heights
+
+
+def timetrace_result_arrays(out):
+    """A ``run_timetrace`` result (either package's) as numpy: h0, w0
+    [N] float64; rec_h, rec_w [T, N] int64; present [T, N] bool;
+    photometries [N, T] float64; and, per trace in order, ``step_fits``,
+    ``plateaus`` (before the t-test merge) as (starts, stops, heights)
+    arrays and ``ck`` as the Chung-Kennedy-filtered trace. The result's
+    dicts are keyed by (h0, w0), so traces are looked up by those keys."""
+    tr = out["traces"]
+    keys = list(zip(tr["h"], tr["w"]))
+    inter = out["step_fit_intermediates"]
+    return {
+        "h0": np.asarray(tr["h"], np.float64),
+        "w0": np.asarray(tr["w"], np.float64),
+        "rec_h": np.asarray(tr["rec_h"], np.int64),
+        "rec_w": np.asarray(tr["rec_w"], np.int64),
+        "present": np.asarray(tr["present"], bool),
+        "photometries": np.asarray(out["photometries"], np.float64),
+        "step_fits": [_plateau_arrays(out["step_fits"][k].trace)
+                      for k in keys],
+        "plateaus": [_plateau_arrays(inter[k]["plateaus"].trace)
+                     for k in keys],
+        "ck": [np.asarray(inter[k]["ck_filtered_photometries"].trace,
+                          np.float64) for k in keys],
+    }

@@ -1,6 +1,6 @@
 """Synthetic experiment stacks with planted Gaussian spots.
 
-Three recipes of the repo's benchmark (bench.py):
+Six recipes of the repo's benchmark (bench.py):
 
 - ``make_stack`` (bench.py::make_stack, the headline step): background
   N(400, 8), ``spots_per_field`` spots per field at integer pixel centers
@@ -14,7 +14,18 @@ Three recipes of the repo's benchmark (bench.py):
 - ``make_zstack`` (bench.py::make_zstack, config 2, the z/time stack): one
   field of persistent spots at subpixel centers, amplitudes U(1500, 4000),
   on a sloped background with a broad bump that breathes by 5% over the
-  frames, noise N(0, 6), emitted as raw uint16 camera frames.
+  frames, noise N(0, 6), emitted as raw uint16 camera frames;
+- ``make_step_traces`` (bench.py::make_step_traces, config 3, batched step
+  fitting): photometry traces with 1-4 planted photobleaching steps of
+  ``beta`` under N(0, noise);
+- ``make_chisq_traces`` (the traces of bench.py::bench_chisq): 0-3 planted
+  steps of 2500 under N(0, 300);
+- ``make_movie`` (bench.py::make_movie, the timetrace movie): spots that
+  bleach to the background in 1-3 steps of ``beta`` while wandering by a
+  subpixel random walk, on N(400, 6), emitted as raw uint16 frames.
+
+Each returns its bench.py arrays, drawn with the same random calls in the
+same order, and on request the planted truth beside them.
 """
 
 from __future__ import annotations
@@ -106,6 +117,91 @@ def make_zstack(T=32, H=512, W=512, n_spots=800, seed=4, return_truth=False):
                     + rng.normal(0, 6, (H, W)))
     stack = np.clip(stack, 0, 65535).astype(np.uint16)
     return (stack, pos) if return_truth else stack
+
+
+def make_step_traces(N, T, seed=0, beta=30000.0, noise=800.0,
+                     return_truth=False):
+    """N timetrace photometry traces of length T with 1-4 planted
+    photobleaching steps (the basic_timetrace_script workload): an (N, T)
+    float64 array; with ``return_truth`` also the list of each trace's
+    sorted drop frames."""
+    rng = np.random.default_rng(seed)
+    levels = rng.integers(1, 5, N)
+    traces = np.empty((N, T))
+    truth = []
+    for i in range(N):
+        drops = np.sort(rng.choice(np.arange(5, T - 5), levels[i],
+                                   replace=False))
+        truth.append(drops.tolist())
+        value = beta * (levels[i] + 1)
+        trace = np.full(T, value)
+        for d in drops:
+            value -= beta
+            trace[d:] = value
+        traces[i] = trace + rng.normal(0, noise, T)
+    return (traces, truth) if return_truth else traces
+
+
+def make_chisq_traces(N, T, seed=0):
+    """(N, T) float64 traces with 0-3 planted downward steps of 2500 under
+    N(0, 300): the chi-squared fitter's benchmark input."""
+    rng = np.random.default_rng(seed)
+    traces = np.zeros((N, T))
+    for i in range(N):
+        nsteps = int(rng.integers(0, 4))
+        drops = np.sort(rng.choice(np.arange(4, T - 4), nsteps,
+                                   replace=False))
+        level = float(nsteps + 1)
+        tr = np.full(T, level)
+        for d in drops:
+            level -= 1.0
+            tr[d:] = level
+        traces[i] = tr * 2500 + rng.normal(0, 300, T)
+    return traces
+
+
+def make_movie(T=24, H=512, W=512, n_spots=800, seed=0, beta=2500.0,
+               return_truth=False):
+    """A timetrace movie: n_spots bleaching spots with subpixel wander (the
+    basic_timetrace_script workload), as [T, H, W] raw uint16 camera
+    frames. With ``return_truth`` also a dict: "positions" [n_spots, T, 2]
+    (float64 planted centers, NaN once the spot has bleached out),
+    "levels" [n_spots, T] (dye count per frame, 0 once bleached out) and
+    "drops" (each spot's sorted drop frames)."""
+    rng = np.random.default_rng(seed)
+    movie = rng.normal(400.0, 6.0, (T, H, W)).astype(np.float32)
+    pos = rng.uniform(12, H - 12, (n_spots, 2))
+    steps = rng.integers(1, 4, n_spots)
+    hh, ww = np.indices((25, 25)).astype(np.float32)
+    positions = np.full((n_spots, T, 2), np.nan)
+    levels = np.zeros((n_spots, T))
+    all_drops = []
+    for s in range(n_spots):
+        drops = np.sort(rng.choice(np.arange(4, T - 2), steps[s],
+                                   replace=False)).tolist()
+        all_drops.append(list(drops))
+        level = float(steps[s])
+        wander = rng.normal(0, 0.08, (T, 2)).cumsum(axis=0)
+        for f in range(T):
+            if drops and f >= drops[0]:
+                level -= 1.0
+                drops = drops[1:]
+            if level <= 0:
+                break
+            h = pos[s, 0] + wander[f, 0]
+            w = pos[s, 1] + wander[f, 1]
+            positions[s, f] = h, w
+            levels[s, f] = level
+            ih = min(max(int(h) - 12, 0), H - 25)
+            iw = min(max(int(w) - 12, 0), W - 25)
+            movie[f, ih:ih + 25, iw:iw + 25] += level * beta * np.exp(
+                -(((hh - (h - ih)) ** 2) + ((ww - (w - iw)) ** 2)) /
+                (2 * 1.3 ** 2))
+    movie = np.clip(movie, 0, 65535).astype(np.uint16)
+    if return_truth:
+        return movie, {"positions": positions, "levels": levels,
+                       "drops": all_drops}
+    return movie
 
 
 def zstack_peaks(out):

@@ -7,6 +7,9 @@ equal order, equal ``sub_img``, centers within 1e-3 px, the other floats
 (theta apart) within rtol 5e-3, atol 5e-3, and a byte-equal PNG. ``zstack``
 on a .npy and ``run-experiment`` on a two-cycle directory print the JAX
 CLI's JSON summary (same keys) and write CSVs whose rows are the API's.
+``stepfit`` (from an .npy matrix and from a track CSV, both methods) and
+``timetrace`` (on TIFF frames) print the JAX CLI's summary and write its
+CSV: text cells equal, numbers within rel 1e-5 / abs 1e-2.
 """
 
 import csv
@@ -21,13 +24,15 @@ import pytest
 import torch
 
 from fluorosequencingimageanalysis_tpu import batch as jax_batch
+from fluorosequencingimageanalysis_tpu.__main__ import main as jax_main
 
 from fluorosequencingimageanalysis_torch import batch as port_batch
 from fluorosequencingimageanalysis_torch.__main__ import build_parser, main
 from fluorosequencingimageanalysis_torch.api import Pipeline
 from fluorosequencingimageanalysis_torch.config import (DetectConfig,
                                                         PhotometryConfig,
-                                                        PipelineConfig)
+                                                        PipelineConfig,
+                                                        StepfitConfig)
 from fluorosequencingimageanalysis_torch.utils import synth
 
 torch.set_num_threads(1)  # tier-1 runs several xdist workers per host
@@ -229,14 +234,157 @@ def test_run_experiment_cli_on_a_two_cycle_directory(tmp_path, capsys):
               "--output-dir", out_dir, "--device", "cpu"])
 
 
+def _csv_rows(path):
+    with open(path, newline="") as fh:
+        return list(csv.reader(fh))
+
+
+def _assert_csvs_close(got_path, ref_path):
+    got, ref = _csv_rows(got_path), _csv_rows(ref_path)
+    assert got[0] == ref[0] and len(got) == len(ref) > 1
+    for g, r in zip(got[1:], ref[1:]):
+        assert len(g) == len(r)
+        for a, b in zip(g, r):
+            try:
+                fb = float(b)
+            except ValueError:
+                assert a == b
+            else:
+                assert float(a) == pytest.approx(fb, rel=1e-5, abs=1e-2)
+    return got
+
+
+@pytest.mark.parametrize("method", ["t_test", "chi_squared"])
+def test_stepfit_cli_from_npy_matches_the_jax_cli_and_the_api(
+        method, tmp_path, capsys):
+    phot = synth.make_step_traces(24, 60, seed=5)
+    npy = str(tmp_path / "phot.npy")
+    np.save(npy, phot)
+    flags = ["--mirror-start", "10", "--chung-kennedy", "1"] \
+        if method == "t_test" else ["--chung-kennedy", "1", "--num-steps",
+                                    "6"]
+    argv = ["stepfit", "--npy", npy, "--method", method, *flags]
+    assert main([*argv, "--output-dir", str(tmp_path / "port"), "--device",
+                 "cpu"]) == 0
+    summary = _json_line(capsys)
+    assert jax_main([*argv, "--output-dir", str(tmp_path / "jax")]) == 0
+    ref = _json_line(capsys)
+    assert sorted(summary) == sorted(ref) == ["csv", "steps", "traces"]
+    assert (summary["traces"], summary["steps"]) == (24, ref["steps"])
+    rows = _assert_csvs_close(summary["csv"], ref["csv"])
+    assert len(rows) == 1 + 24 * 60 and summary["steps"] > 24
+    if method == "t_test":
+        fits = Pipeline(PipelineConfig(stepfit=StepfitConfig(
+            mirror_start=10, chung_kennedy=1, p_threshold=0.01)),
+            device="cpu").stepfit(phot)
+        assert summary["steps"] == sum(len(f[3]) - 1 for f in fits)
+        first = [r for r in rows[1:] if r[0] == "0"]
+        assert [float(r[8]) for r in first] == [
+            h for a, b, h in fits[0][3] for _ in range(a, b + 1)]
+    else:
+        with pytest.raises(SystemExit, match="mirror_start"):
+            main([*argv, "--mirror-start", "5", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="exactly one"):
+        main(["stepfit", "--device", "cpu"])
+    np.save(npy, phot[0])
+    with pytest.raises(SystemExit, match=r"\(N, T\)"):
+        main(["stepfit", "--npy", npy, "--device", "cpu"])
+
+
+def test_stepfit_cli_from_a_run_experiment_track_csv(tmp_path, capsys):
+    stack = np.clip(synth.make_experiment_stack(
+        2, 8, 96, 96, spots_per_field=10), 0, 65535).astype(np.uint16)
+    tracks = str(tmp_path / "tracks.csv")
+    res = Pipeline(device="cpu").run_experiment(stack, max_candidates=128,
+                                                csv_path=tracks)
+    argv = ["stepfit", tracks, "--channel", "ch1", "--p-threshold", "0.01"]
+    assert main([*argv, "--output-dir", str(tmp_path / "port"), "--profile",
+                 "--device", "cpu"]) == 0
+    summary = _json_line(capsys)
+    assert jax_main([*argv, "--output-dir", str(tmp_path / "jax")]) == 0
+    ref = _json_line(capsys)
+    assert summary["traces"] == ref["traces"] == len(res["rows"]) > 10
+    assert summary["steps"] == ref["steps"]
+    rows = _assert_csvs_close(summary["csv"], ref["csv"])
+    assert rows[0][:6] == ["Trace #", "Channel", "Field", "Hcoord", "Wcoord",
+                           "Frame #"]
+    assert len(rows) == 1 + summary["traces"] * 8
+    assert {r[1] for r in rows[1:]} == {"ch1"}
+    with pytest.raises(SystemExit, match="no traces"):
+        main(["stepfit", tracks, "--channel", "ch9", "--device", "cpu"])
+
+
+def test_timetrace_cli_on_tiff_frames(tmp_path, capsys):
+    movie = synth.make_movie(T=12, H=96, W=96, n_spots=10, seed=1)
+    frames = []
+    for f in range(12):
+        frames.append(str(tmp_path / f"frame_{f:02d}.tif"))
+        iio.imwrite(frames[-1], movie[f])
+    argv = ["timetrace", "--frames", *frames, "--max-candidates", "256",
+            "--mirror-start", "10", "--chung-kennedy", "1", "--p-threshold",
+            "0.01", "--photometry-method", "simple"]
+    assert main([*argv, "--output-dir", str(tmp_path / "port"), "--profile",
+                 "--device", "cpu"]) == 0
+    summary = _json_line(capsys)
+    assert jax_main([*argv, "--output-dir", str(tmp_path / "jax")]) == 0
+    ref = _json_line(capsys)
+    assert sorted(summary) == ["csv", "frames", "stages_sec", "traces"]
+    assert (summary["frames"], summary["traces"]) == (12, ref["traces"])
+    assert summary["traces"] >= 8
+    assert "api/run_timetrace/track+photometry" in summary["stages_sec"]
+    rows = _assert_csvs_close(summary["csv"], ref["csv"])
+    assert len(rows) == 1 + summary["traces"] * 12
+    want = Pipeline(PipelineConfig(photometry=PhotometryConfig(
+        method="simple")), device="cpu").run_timetrace(
+            movie, max_candidates=256, mirror_start=10, chung_kennedy=1,
+            p_threshold=0.01)
+    assert [float(r[4]) for r in rows[1:13]] == list(want["photometries"][0])
+    # One multi-page file is the same movie.
+    iio.mimwrite(tmp_path / "movie.tif", list(movie))
+    assert main(["timetrace", "--frames", str(tmp_path / "movie.tif"),
+                 *argv[14:], "--output-dir", str(tmp_path / "multi"),
+                 "--device", "cpu"]) == 0
+    multi = _json_line(capsys)
+    with open(multi["csv"]) as a, open(summary["csv"]) as b:
+        assert a.read() == b.read()
+
+
+def test_run_files_reads_the_stack_run_stack_takes(tmp_path):
+    stack, _ = synth.make_stack(2, 2, 64, 64, spots_per_field=5, seed=3)
+    stack = np.clip(stack, 0, 65535).astype(np.uint16)
+    paths = [[str(tmp_path / f"c{c}_f{f}.tif") for f in range(2)]
+             for c in range(2)]
+    for c in range(2):
+        for f in range(2):
+            iio.imwrite(paths[c][f], stack[f, c])
+    pipe = Pipeline(PipelineConfig(detect=DetectConfig(max_candidates=32,
+                                                       num_iters=10)),
+                    device="cpu")
+    got, want = pipe.run_files(paths), pipe.run_stack(stack)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with pytest.raises(ValueError, match="same field count"):
+        pipe.run_files([paths[0], paths[1][:1]])
+
+
 def test_parser_has_the_ported_subcommands_and_the_cards_default(tmp_path):
     parser = build_parser()
     for argv in (["detect", "a.tif"], ["zstack", "a.npy"],
-                 ["run-experiment", "--peptide-files", "a.tif"]):
+                 ["run-experiment", "--peptide-files", "a.tif"],
+                 ["timetrace", "--frames", "a.tif"], ["stepfit", "a.csv"]):
         assert parser.parse_args(argv).device == "cuda"
-    for name in ("timetrace", "stepfit", "simulate"):
+    for name in ("fluor-counts", "background-correct", "remainder-correct",
+                 "simulate"):
         with pytest.raises(SystemExit):
             parser.parse_args([name])
+    args = parser.parse_args(["stepfit", "--npy", "p.npy"])
+    assert (args.method, args.mirror_start, args.chung_kennedy,
+            args.p_threshold, args.num_steps, args.csv) == (
+                "t_test", 0, 0, 0.01, 10, "step_fits.csv")
+    args = parser.parse_args(["timetrace", "--frames", "a.tif", "b.tif"])
+    assert (args.search_radius, args.sn_cutoff, args.max_candidates,
+            args.mirror_start, args.csv) == (3, 3.0, None, None,
+                                             "timetrace.csv")
     args = parser.parse_args(["zstack", "a.npy"])
     assert (args.box_size, args.filter_size, args.output) == (
         10, 10, "zstack_spots.csv")

@@ -271,3 +271,121 @@ def test_run_zstack_and_find_peptides_card_vs_cpu(dev):
     for key in cpu:
         np.testing.assert_allclose(card[key][:2], cpu[key][:2], atol=1e-3)
         np.testing.assert_array_equal(card[key][7], cpu[key][7])
+
+
+def test_betainc_and_the_step_detector_on_the_card(dev):
+    import scipy.special
+
+    from fluorosequencingimageanalysis_torch.ops.special import betainc
+    from fluorosequencingimageanalysis_torch.ops.stepfit_batch import (
+        _ck_and_masks)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_step_traces)
+    a, x = np.meshgrid(np.arange(1, 61) / 2.0, np.linspace(0, 1, 41),
+                       indexing="ij")
+    got = betainc(torch.from_numpy(a).to(dev), 0.5,
+                  torch.from_numpy(x).to(dev))
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               scipy.special.betainc(a, 0.5, x), rtol=0,
+                               atol=1e-12)
+    traces = torch.from_numpy(make_step_traces(256, 110, seed=1))
+    ck, masks = _ck_and_masks(traces.to(dev), p_threshold=0.01)
+    ck_c, masks_c = _ck_and_masks(traces, p_threshold=0.01)
+    assert ck.dtype == torch.float64 and masks.dtype == torch.bool
+    np.testing.assert_allclose(ck.cpu().numpy(), ck_c.numpy(), rtol=1e-12,
+                               atol=1e-9)
+    # A mask bit may differ only where p is at the threshold to rounding.
+    assert int((masks.cpu() != masks_c).sum()) <= 1 and masks_c.any()
+
+
+def _same_plateaus(a, b):
+    assert [p[:2] for p in a] == [p[:2] for p in b]
+    np.testing.assert_allclose([p[2] for p in a], [p[2] for p in b],
+                               rtol=1e-9)
+
+
+def test_stepfit_on_the_card_matches_cpu(dev):
+    from fluorosequencingimageanalysis_torch.config import StepfitConfig
+    from fluorosequencingimageanalysis_torch.ops.stepfit_batch import (
+        stepfit_batched)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_step_traces)
+    traces = make_step_traces(600, 100, seed=2)
+    cfg = PipelineConfig(stepfit=StepfitConfig(
+        mirror_start=10, chung_kennedy=1, p_threshold=0.01))
+    card = Pipeline(cfg, device=dev).stepfit(traces)
+    cpu = Pipeline(cfg, device="cpu").stepfit(traces)
+    assert len(card) == len(cpu) == 600
+    for g, c in zip(card, cpu):
+        assert g[0] == c[0]
+        np.testing.assert_allclose(g[1], c[1], rtol=1e-12, atol=1e-9)
+        _same_plateaus(g[2], c[2])
+        _same_plateaus(g[3], c[3])
+    chunked = stepfit_batched(traces, mirror_start=10, chung_kennedy=1,
+                              p_threshold=0.01, chunk=256, device=dev)
+    assert [r[3] for r in chunked] == [r[3] for r in card]
+    plain = stepfit_batched(traces[:64], p_threshold=0.01, device=dev)
+    for g, c in zip(plain, stepfit_batched(traces[:64], p_threshold=0.01,
+                                           device="cpu")):
+        _same_plateaus(g[3], c[3])
+
+
+@pytest.mark.parametrize("method", ["mexican_hat", "simple", "sextractor"])
+def test_run_timetrace_on_the_card_matches_cpu(dev, method, tmp_path):
+    from fluorosequencingimageanalysis_torch.config import PhotometryConfig
+    from fluorosequencingimageanalysis_torch.utils.synth import make_movie
+    movie = make_movie(T=12, H=128, W=128, n_spots=30, seed=3)
+    cfg = PipelineConfig(photometry=PhotometryConfig(method=method))
+    kw = dict(mirror_start=10, chung_kennedy=1, p_threshold=0.01)
+    a0, b0 = candidate_map_fused.launches, fit_quality.launches
+    card = Pipeline(cfg, device=dev).run_timetrace(
+        movie, csv_path=str(tmp_path / "g.csv"), **kw)
+    assert candidate_map_fused.launches == a0 + 1   # frame 0, exhaustive
+    assert fit_quality.launches == b0 + 1           # one chunk
+    cpu = Pipeline(cfg, device="cpu").run_timetrace(
+        movie, csv_path=str(tmp_path / "c.csv"), **kw)
+    assert card["trace_count"] == cpu["trace_count"] >= 20
+    for k in ("h", "w", "rec_h", "rec_w", "present"):
+        np.testing.assert_array_equal(card["traces"][k], cpu["traces"][k],
+                                      err_msg=k)
+    np.testing.assert_allclose(card["photometries"], cpu["photometries"],
+                               rtol=1e-6, atol=5e-2)
+    for key, fit in cpu["step_fits"].items():
+        assert [p[:2] for p in card["step_fits"][key].trace] == \
+            [p[:2] for p in fit.trace]
+    with open(tmp_path / "g.csv") as a, open(tmp_path / "c.csv") as b:
+        assert len(a.readlines()) == len(b.readlines()) == \
+            1 + 12 * cpu["trace_count"]
+    # A movie already on the card, and two movies with one uploaded ahead.
+    pipe = Pipeline(cfg, device=dev)
+    again = pipe.run_timetrace(torch.from_numpy(movie).to(dev), **kw)
+    np.testing.assert_array_equal(again["photometries"],
+                                  card["photometries"])
+    two = pipe.run_timetraces([movie, movie[:8]], **kw)
+    np.testing.assert_array_equal(two[0]["photometries"],
+                                  card["photometries"])
+    assert two[1]["photometries"].shape[1] == 8
+
+
+def test_kernels_match_twins_at_the_timetrace_shapes(dev):
+    """Frame 0 of the movie (1 x 512 x 512) and the exhaustive path's
+    first chunk of its candidates, 60 iterations."""
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        extract_candidates_chunk)
+    from fluorosequencingimageanalysis_torch.utils.synth import make_movie
+    img = torch.from_numpy(make_movie(T=10)[:1].astype(np.float32)).to(dev)
+    cm = candidate_map_fused(img, DEFAULT_CORRELATION_MATRIX)
+    assert float((cm - candidate_map_plain(
+        img, DEFAULT_CORRELATION_MATRIX)).abs().max()) == 0.0
+    excluded = torch.zeros((1, 512 * 512), dtype=torch.bool, device=dev)
+    hs, ws, valid, remaining, _ = extract_candidates_chunk(cm, excluded,
+                                                           4096, 2.0)
+    assert int(remaining[0]) > 1000 and bool(valid.any())
+    got = fit_quality(img, hs, ws, 60, 1)
+    ref = fit_quality_plain(img, hs, ws, 60, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])              # parameters, bit for bit
+    m = valid & (ref[4] >= 0.7)
+    assert int(m.sum()) > 500
+    assert float((got[1] - ref[1]).abs()[m].max()) <= 1e-3
+    assert float((got[4] - ref[4]).abs()[m].max()) <= 1e-4

@@ -44,8 +44,16 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.utils.profiling",
     "fluorosequencingimageanalysis_torch.utils.rounding",
     "fluorosequencingimageanalysis_torch.native.tracklink",
+    "fluorosequencingimageanalysis_torch.native.stepchain",
+    "fluorosequencingimageanalysis_torch.native.chisqfit",
+    "fluorosequencingimageanalysis_torch.stepfitting",
+    "fluorosequencingimageanalysis_torch.ops.special",
+    "fluorosequencingimageanalysis_torch.ops.stepfit_batch",
+    "fluorosequencingimageanalysis_torch.inference.photometries",
     "fluorosequencingimageanalysis_torch.pipeline.experiment",
     "fluorosequencingimageanalysis_torch.pipeline.fast_experiment",
+    "fluorosequencingimageanalysis_torch.pipeline.fast_timetrace",
+    "fluorosequencingimageanalysis_torch.pipeline.traces",
     "fluorosequencingimageanalysis_torch.pipeline.spots",
     "fluorosequencingimageanalysis_torch.pipeline.tracking",
 ]
@@ -86,6 +94,15 @@ def test_port_imports_and_runs_with_jax_blocked():
         "    assert z['keep'].shape == (3, 16) and z['keep'].any()\n"
         "    assert pipe.store.exists(next(pipe.store.keys()))\n"
         "assert find_peptides(frames[0], num_iters=3, device='cpu')\n"
+        "from fluorosequencingimageanalysis_torch.utils.synth import (\n"
+        "    make_movie, make_step_traces)\n"
+        "pipe = Pipeline(device='cpu')\n"
+        "movie = make_movie(T=10, H=64, W=64, n_spots=6)\n"
+        "tt = pipe.run_timetrace(movie, max_candidates=64, mirror_start=4)\n"
+        "assert tt['trace_count'] and tt['photometries'].shape[1] == 10\n"
+        "traces = make_step_traces(6, 40)\n"
+        "assert len(pipe.stepfit(traces)) == 6\n"
+        "assert len(pipe.chi_squared_stepfit(traces, num_steps=4)) == 6\n"
         "bad = sorted(m for m in sys.modules if m.startswith(\n"
         "    ('jax', 'fluorosequencingimageanalysis_tpu'))\n"
         "    and sys.modules[m] is not None)\n"
@@ -118,7 +135,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                     assert not name.split(".")[0] in (
                         "jax", "jaxlib", "fluorosequencingimageanalysis_tpu"
                     ), (f, name)
-    assert seen >= 30
+    assert seen >= 40
     for name in _imported_names(os.path.join(REPO, "chip_smoke.py")):
         assert name.split(".")[0] not in (
             "jax", "fluorosequencingimageanalysis_tpu"), name
@@ -208,7 +225,9 @@ def test_copied_host_functions_are_the_jax_packages():
                 "sigma_clip_boxes", "sextractor_mode", "_mesh_background",
                 "sextractor_aperture_sums", "_circle_pixel_area",
                 "_aperture_fracs", "_aperture_sum"]),
-            ("models/detect.py", ["unpack_spot_buckets", "_center_keys"])]:
+            ("models/detect.py", ["unpack_spot_buckets", "_center_keys"]),
+            ("ops/stepfit_batch.py", ["_plateaus_from_mask"]),
+            ("pipeline/fast_timetrace.py", ["_initial_centers"])]:
         got = funcs(os.path.join(PORT_DIR, rel), names)
         want = funcs(os.path.join(jax_dir, rel), names)
         assert sorted(got) == sorted(names) == sorted(want), rel
@@ -379,3 +398,104 @@ def test_tracker_build_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
     assert not os.path.exists(_build.ptxas_path("tracklink"))
     (tmp_path / "csrc" / "extra.cuh").write_text("// a CUDA header\n")
     assert _build.library_path("tracklink") == so  # only .cu hash headers
+
+
+def _definitions(path):
+    """{name: AST dump} of a module's top-level functions and classes,
+    docstrings apart."""
+    tree = ast.parse(open(path).read(), filename=path)
+    out = {}
+    for node in tree.body:
+        if not isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            continue
+        for sub in ast.walk(node):
+            body = getattr(sub, "body", None)
+            if (isinstance(body, list) and body
+                    and isinstance(body[0], ast.Expr)
+                    and isinstance(getattr(body[0], "value", None),
+                                   ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                sub.body = body[1:] or [ast.Pass()]
+        out[node.name] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("rel,differs", [
+    ("stepfitting.py", ["chi_squared_fit_batch"]),
+    ("pipeline/traces.py", [])])
+def test_copied_step_fit_modules_are_the_jax_packages(rel, differs):
+    """The float64 specification of the step fitters and the trace
+    classes are copies: every function and class is the JAX package's
+    statement for statement, ``chi_squared_fit_batch`` apart (no engine
+    probe and no Python fallback in the port)."""
+    got = _definitions(os.path.join(PORT_DIR, rel))
+    want = _definitions(os.path.join(
+        REPO, "fluorosequencingimageanalysis_tpu", rel))
+    assert sorted(got) == sorted(want) and len(got) >= 4
+    assert [n for n in got if got[n] != want[n]] == differs
+
+
+def test_timetrace_experiment_methods_are_the_jax_packages():
+    def methods(path):
+        tree = ast.parse(open(path).read(), filename=path)
+        cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+                   and n.name == "TimetraceExperiment")
+        out = {}
+        for node in cls.body:
+            if isinstance(node, ast.FunctionDef):
+                if isinstance(node.body[0], ast.Expr) and isinstance(
+                        node.body[0].value, ast.Constant):
+                    node.body = node.body[1:]
+                out[node.name] = ast.dump(node)
+        return out
+
+    got = methods(os.path.join(PORT_DIR, "pipeline", "experiment.py"))
+    want = methods(os.path.join(REPO, "fluorosequencingimageanalysis_tpu",
+                                "pipeline", "experiment.py"))
+    assert sorted(got) == ["__init__", "_get_all_intermediates",
+                           "save_experiment_as_csv", "save_traces_pkl"]
+    for name in got:
+        assert got[name] == want[name], name
+
+
+def _without_comments(text):
+    return [line.split("//")[0].rstrip() for line in text.splitlines()]
+
+
+@pytest.mark.parametrize("name", ["stepchain", "chisqfit"])
+def test_step_fit_cores_are_the_jax_packages(name):
+    """The port builds its own copies of the two native step-fit cores:
+    the same code line for line (a comment may name another place)."""
+    with open(os.path.join(PORT_DIR, "csrc", name + ".cpp")) as f:
+        port_src = f.read()
+    with open(os.path.join(REPO, "fluorosequencingimageanalysis_tpu",
+                           "native", name + ".cpp")) as f:
+        jax_src = f.read()
+    assert _without_comments(port_src) == _without_comments(jax_src)
+    assert len(port_src.splitlines()) > 400
+    if name == "stepchain":
+        assert port_src == jax_src
+    assert "-march=native" not in _build.flags(name)
+    assert all(f in _build.flags(name)
+               for f in ("-O3", "-ffp-contract=off", "-pthread"))
+
+
+def test_failed_step_fit_core_builds_raise_without_fallback(tmp_path,
+                                                            monkeypatch):
+    import numpy as np
+
+    from fluorosequencingimageanalysis_torch import stepfitting
+    from fluorosequencingimageanalysis_torch.ops import stepfit_batch
+    _fake_host_tree(tmp_path, monkeypatch,
+                    'echo "error: expected unqualified-id" >&2\nexit 1\n')
+    for name in ("stepchain", "chisqfit"):
+        with open(os.path.join(PORT_DIR, "csrc", name + ".cpp")) as f:
+            (tmp_path / "csrc" / (name + ".cpp")).write_text(f.read())
+    traces = np.random.default_rng(0).normal(100, 5, (3, 30))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed to build "
+                       "stepchain.cpp(.|\\n)*expected unqualified-id"):
+        stepfit_batch.stepfit_batched(traces, device="cpu")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed to build "
+                       "chisqfit.cpp(.|\\n)*expected unqualified-id"):
+        stepfitting.chi_squared_fit_batch(traces, num_steps=3)
+    assert os.listdir(tmp_path / "_build") == []
