@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py              # every check, the timings
     python3 chip_smoke.py --profile    # also profiler traces of both paths
+    python3 chip_smoke.py --phases fluor,timetrace   # only those groups
 
 Builds the hand-written kernels from csrc/ (nvcc, sm_90a, one process per
 source, all at once) and reads ptxas's registers and spills for each,
 checks each against its plain PyTorch twin on the card (kernel A bit for
-bit, kernel B's parameters bit for bit), times each beside its bound
+bit, kernel B's parameters bit for bit, kernel C's winners, found flags
+and scores bit for bit), times each beside its bound
 (bytes over the memory rate or operations over the float32 rate), drives
 the experiment step through ``Pipeline(device="cuda").run_stack`` on the
 headline stack (8 fields x 4 cycles of 512x512, ~200 planted spots per
@@ -40,6 +42,20 @@ of a 512x512 field with 800 bleaching spots through ``run_timetrace``
 names, the tracker loop alone, planted recovery, the CSV, both kernels at
 this path's shapes), the card against the CPU on a reduced movie, and the
 ``stepfit`` subcommand in a process of its own.
+Then fluor counting, config 5 (100,000 traces of 12 cycles, up to 5
+fluors: 6,188 candidate sequences a trace): ``score_traces`` on the card
+(traces/s, kernel C alone beside its bound, its twin and the matmul form
+of the JAX package as the nearest composition of library calls, a sample
+against the per-trace float64 host oracle, the card against the CPU,
+``score_chunk_device``), a 20,000-row track CSV through
+``Pipeline.fluor_counts`` on both ingestion paths and through
+``fluor_counts_calibrated`` against the CPU runs, the experiment's own
+track CSV through ``fluor_counts``, and the ``fluor-counts`` (manual and
+``--auto-calibrate``), ``background-correct`` and ``remainder-correct``
+subcommands each in a process of its own.
+``--phases`` names the groups to run, of headline, experiment, zstack,
+timetrace and fluor (default: all, in that order); the kernel summary
+then lists the kernels those groups drove.
 ``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
 run_experiment, and a cProfile of one group's host half. Prints one
@@ -68,8 +84,10 @@ F, C, HW = 8, 4, 512
 MAX_CANDIDATES, NUM_ITERS, UPSAMPLE = 2048, 40, 20
 B_CENTER, B_R2, B_RMSE_REL, B_MODEL = 1e-3, 1e-4, 1e-4, 1e-3
 SWEEP = [(48, 100), (33, 257), (70, 130), (96, 384)]
-KERNELS = ("candidate_map", "fit_quality")
-HOST_CORES = ("tracklink", "stepchain", "chisqfit")
+KERNELS = ("candidate_map", "fit_quality", "v8_score")
+HOST_CORES = ("tracklink", "stepchain", "chisqfit", "trackcsv")
+# Groups of phases, in the order they run; --phases names a subset.
+PHASES = ("headline", "experiment", "zstack", "timetrace", "fluor")
 # Config 4 (bench.py's experiment workload): fields, cycles, candidate and
 # spot buckets, timed runs after one warm-up.
 EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
@@ -102,6 +120,16 @@ TT_SMALL = dict(T=12, H=128, W=128, n_spots=30, seed=1)
 # axis; a tracked position within 1.5 px (Euclidean) in every live frame.
 TT_START_PX, TT_STAY_PX, TT_UNNAMED_SHARE = 1.0, 1.5, 0.10
 CLI_STEPFIT_N = 256
+# Config 5, fluor counting (bench.py::bench_v8): traces, cycles and the
+# most fluors (C(17, 12) = 6,188 sequences), timed runs after one warm-up,
+# traces held against the per-trace host oracle and against the CPU run;
+# rows of the synthetic track CSV and traces of each control fit.
+V8_T, V8_F, V8_K, V8_REPS, V8_ORACLE, V8_CPU = 100_000, 12, 5, 5, 150, 4096
+V8_BETA, V8_BETA_SIGMA, V8_MAX_DEVIATION = 30000.0, 0.2, 3
+FC_ROWS, FC_REPS, FC_CONTROL_ROWS = 20_000, 3, 5_000
+# Traces per chunk of the plain twin and of the matmul form on the card:
+# both build (chunk, 6188) float32 arrays.
+V8_TWIN_CHUNK, V8_MATMUL_CHUNK = 4096, 8192
 # Photometry of the card against the CPU: float32 sums of ~2e4 in another
 # order differ by a few ulp (2e-3 each), which a value near 0 cannot absorb
 # relatively.
@@ -294,6 +322,19 @@ def nvidia_smi_line():
     return proc.stdout.strip().splitlines()[0]
 
 
+def run_cli(argv):
+    """One subcommand in a process of its own: (its JSON line, seconds)."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fluorosequencingimageanalysis_torch", *argv],
+        capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"the {argv[0]} subcommand exits 0: " +
+          proc.stderr[-2000:])
+    return (json.loads(proc.stdout.strip().splitlines()[-1]),
+            time.perf_counter() - t)
+
+
 def planted(h, w, seed):
     rng = np.random.default_rng(seed)
     img = rng.normal(400, 10, (h, w)).astype(np.float32)
@@ -311,7 +352,8 @@ def experiment_phase(tmpl, dev, profile_host=False):
     reduced stack. Emits the "experiment" line (and, with
     ``profile_host``, the "experiment_host_profile" line and the
     device's busy share over one run); returns the
-    kernels' launches per run and their numbers at this path's shapes."""
+    kernels' launches per run, their numbers at this path's shapes and the
+    text of the track CSV."""
     from fluorosequencingimageanalysis_torch.api import (GROUP_FIELDS,
                                                          Pipeline)
     from fluorosequencingimageanalysis_torch.ops.candidates import (
@@ -382,7 +424,8 @@ def experiment_phase(tmpl, dev, profile_host=False):
         check(all(np.isfinite(np.asarray(r[5], np.float64)).all()
                   for r in rows), "every row's photometry is finite")
         with open(paths["csv_path"], newline="") as fh:
-            table = list(csv.reader(fh))
+            track_csv = fh.read()
+        table = list(csv.reader(track_csv.splitlines()))
         check(table[0] == ["CHANNEL", "FIELD", "H", "W", "CATEGORY"] +
               [f"FRAME {i}" for i in range(EXP_C)] and
               len(table) == len(rows) + 1 and
@@ -504,7 +547,7 @@ def experiment_phase(tmpl, dev, profile_host=False):
             prof["device_busy_us"] / 1e6 / statistics.median(walls))
         emit("experiment_profile", **prof)
     return {
-        "launches": runs[0]["launches"],
+        "launches": runs[0]["launches"], "track_csv": track_csv,
         "kernels": {
             "candidate_map": {
                 "shape": a_shape,
@@ -812,16 +855,8 @@ def zstack_phases(tmpl, dev):
         npy, out_csv = os.path.join(tmp, "frames.npy"), os.path.join(
             tmp, "spots.csv")
         np.save(npy, few)
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "fluorosequencingimageanalysis_torch",
-             "zstack", npy, "--output", out_csv, "--max-candidates",
-             str(Z_K)], capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        cli_s = time.perf_counter() - t
-        check(proc.returncode == 0, "the zstack subcommand exits 0: " +
-              proc.stderr[-2000:])
-        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        summary, cli_s = run_cli(["zstack", npy, "--output", out_csv,
+                                  "--max-candidates", str(Z_K)])
         with open(out_csv, newline="") as fh:
             table = list(csv.reader(fh))
     want = [[str(t_), str(full["center_h"][t_, i]),
@@ -1200,18 +1235,11 @@ def timetrace_phases(tmpl, dev):
     with tempfile.TemporaryDirectory() as tmp:
         npy = os.path.join(tmp, "phot.npy")
         np.save(npy, traces[:CLI_STEPFIT_N])
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "fluorosequencingimageanalysis_torch",
-             "stepfit", "--npy", npy, "--output-dir", tmp, "--mirror-start",
+        summary, cli_s = run_cli(
+            ["stepfit", "--npy", npy, "--output-dir", tmp, "--mirror-start",
              str(SF_KW["mirror_start"]), "--chung-kennedy",
              str(SF_KW["chung_kennedy"]), "--p-threshold",
-             str(SF_KW["p_threshold"])], capture_output=True, text=True,
-            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
-        cli_s = time.perf_counter() - t
-        check(proc.returncode == 0, "the stepfit subcommand exits 0: " +
-              proc.stderr[-2000:])
-        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+             str(SF_KW["p_threshold"])])
         with open(summary["csv"], newline="") as fh:
             table = list(csv.reader(fh))
     want_steps = sum(len(f[3]) - 1 for f in fits[:CLI_STEPFIT_N])
@@ -1240,6 +1268,613 @@ def timetrace_phases(tmpl, dev):
                 "ms": b["ms_median"], "plain_ms": b["plain_ms_median"],
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "share_of_bound": b["share_of_bound"]}}}}
+
+
+def matmul_form(contrib, invalid, tab_t, seq_ok):
+    """The JAX package's form of the scorer in library calls, for a timing
+    beside kernel C (the port never calls it): two (n, F*nv) @ (F*nv, S)
+    float32 products with the one-hot membership of the table, and a masked
+    argmax, in chunks of V8_MATMUL_CHUNK traces."""
+    T, F, nv = contrib.shape
+    onehot = torch.nn.functional.one_hot(tab_t.long(), nv)      # (F, S, nv)
+    M = onehot.permute(0, 2, 1).reshape(F * nv, -1).to(torch.float32)
+    ok = seq_ok.bool()[None, :]
+    best = []
+    for lo in range(0, T, V8_MATMUL_CHUNK):
+        c = contrib[lo:lo + V8_MATMUL_CHUNK].reshape(-1, F * nv)
+        v = invalid[lo:lo + V8_MATMUL_CHUNK].reshape(-1, F * nv)
+        scores = c @ M
+        valid = ((v.to(torch.float32) @ M) < 0.5) & ok
+        key = torch.where(valid, scores.clamp_min(-1e30),
+                          scores.new_full((), float("-inf")))
+        best.append(torch.argmax(key, dim=-1))
+    return torch.cat(best)
+
+
+def write_v8_tracks_csv(path, intensities, categories, rows_per_field=1000):
+    """A track CSV of integer intensities (OFF tails as written by the
+    workload: zeros), 1,000 rows a field, unique (field, h, w)."""
+    ints = np.rint(intensities).astype(np.int64)
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["CHANNEL", "FIELD", "H", "W", "CATEGORY"] +
+                   [f"FRAME {i}" for i in range(ints.shape[1])])
+        for i, (cat, row) in enumerate(zip(categories.tolist(),
+                                           ints.tolist())):
+            w.writerow(["ch1", i // rows_per_field, i % rows_per_field,
+                        (7 * i) % rows_per_field, str(tuple(cat))] + row)
+
+
+def fluor_phases(dev, ptxas, experiment_csv):
+    """Fluor counting on the card, config 5: the scorer at full width
+    through ``score_traces`` (kernel C against its twin bit for bit, the
+    host oracle, the CPU run, the matmul form beside it), a synthetic track
+    CSV through ``Pipeline.fluor_counts`` on both ingestion paths and
+    through ``fluor_counts_calibrated``, the experiment's own track CSV
+    (``experiment_csv``; a reduced experiment is run where that group did
+    not), and the four subcommands each in a process of its own. Emits the
+    "v8", "fluor_counts" and "cli" lines; returns kernel C's launches on
+    each path and its numbers."""
+    import contextlib
+    import io
+    import pickle
+
+    from fluorosequencingimageanalysis_torch.__main__ import main as cli_main
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.config import (LognormalConfig,
+                                                            PipelineConfig)
+    from fluorosequencingimageanalysis_torch.inference.lognormal import (
+        _intensities_to_signal_lognormal_v8)
+    from fluorosequencingimageanalysis_torch.inference.photometries import (
+        read_track_photometries_csv)
+    from fluorosequencingimageanalysis_torch.native.trackcsv import (
+        read_track_photometries_arrays)
+    from fluorosequencingimageanalysis_torch.ops import lognormal as ln
+    from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
+        v8_score_fused, v8_score_plain)
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_experiment_stack, make_v8_workload)
+
+    # The scorer at full width through its entry point.
+    T, F, K = V8_T, V8_F, V8_K
+    ints, cats, lfm = make_v8_workload(T, F, K, beta=V8_BETA,
+                                       beta_sigma=V8_BETA_SIGMA)
+    kw = dict(log_fluor_means=lfm, beta_sigma=V8_BETA_SIGMA, max_possible=K,
+              allow_multidrop=True, max_deviation=V8_MAX_DEVIATION)
+    t = time.perf_counter()
+    ln.score_traces(ints, cats, device=dev, **kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    runs = []
+    for _ in range(V8_REPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        v8_score_fused.launches = 0
+        t = time.perf_counter()
+        seqs, found, best_ls = ln.score_traces(ints, cats, device=dev, **kw)
+        torch.cuda.synchronize()
+        runs.append({"wall_s": time.perf_counter() - t,
+                     "launches": {"v8_score": v8_score_fused.launches},
+                     "peak_mem_bytes": int(torch.cuda.max_memory_allocated())})
+    chunks = [(lo, min(lo + ln.CUDA_CHUNK, T))
+              for lo in range(0, T, ln.CUDA_CHUNK)]
+    for r in runs:
+        check(r["launches"]["v8_score"] == len(chunks),
+              f"score_traces launched kernel C once per chunk of "
+              f"{ln.CUDA_CHUNK}: {r['launches']}")
+    S = ln.sequence_table(F, K).shape[0]
+    check(seqs.shape == (T, F) and found.shape == (T,) and
+          best_ls.dtype == np.float64 and np.isfinite(best_ls[found]).all()
+          and (np.diff(seqs[found], axis=1) <= 0).all(),
+          "score_traces returns finite scores and non-increasing sequences")
+    check(found.mean() > 0.95, f"found.mean() = {found.mean()}")
+
+    # Kernel C against its twin, bit for bit, at the main path's shapes.
+    table = ln.device_table(F, K, False, True, dev)
+    log_int = np.where(ints > 0, np.log(np.maximum(ints, 1e-300)),
+                       -10000.0).astype(np.float32)
+    lfm_dev = torch.from_numpy(np.asarray(lfm[:K], np.float32)).to(dev)
+    contrib, invalid = ln._contrib_invalid(
+        torch.from_numpy(log_int).to(dev), torch.from_numpy(cats).to(dev),
+        lfm_dev, V8_BETA_SIGMA, float(V8_MAX_DEVIATION))
+
+    def kernel():
+        return [v8_score_fused(contrib[lo:hi], invalid[lo:hi], *table)
+                for lo, hi in chunks]
+
+    def twin():
+        return [v8_score_plain(contrib[lo:lo + V8_TWIN_CHUNK],
+                               invalid[lo:lo + V8_TWIN_CHUNK], *table)
+                for lo in range(0, T, V8_TWIN_CHUNK)]
+
+    got = [torch.cat(x) for x in zip(*kernel())]
+    ref = [torch.cat(x) for x in zip(*twin())]
+    torch.cuda.synchronize()
+    mismatches = {
+        "best_idx": int((got[0] != ref[0]).sum()),
+        "found": int((got[1] != ref[1]).sum()),
+        "best_logscore_bits": int((got[2].view(torch.int32) !=
+                                   ref[2].view(torch.int32)).sum())}
+    err_c = float((got[2] - ref[2]).abs().max())
+    check(not any(mismatches.values()) and err_c == 0.0,
+          f"kernel C vs twin at T={T}, F={F}, nv={K + 1}, S={S}: "
+          f"{mismatches}, max abs score err {err_c}")
+    check(np.array_equal(ln.sequence_table(F, K)[got[0].cpu().numpy()], seqs)
+          and np.array_equal(got[1].cpu().numpy(), found),
+          "score_traces returns kernel C's winners")
+    c_ms = time_ms(kernel, 10)
+    twin_ms = time_ms(twin, 2)
+    mm_best = matmul_form(contrib, invalid, *table)
+    mm_differ = int((mm_best != got[0])[got[1]].sum())
+    mm_ms = time_ms(lambda: matmul_form(contrib, invalid, *table), 3)
+    nbytes = (contrib.numel() * 4 + invalid.numel() + S * F + S +
+              T * (4 + 1 + 4))
+    c_bound, c_by = bound(nbytes, T * S * F)
+    c_med = statistics.median(c_ms)
+
+    # score_chunk_device: everything stays on the card (float32 log there).
+    ints_dev = torch.from_numpy(ints.astype(np.float32)).to(dev)
+    counts_dev = torch.from_numpy(cats).to(dev)
+    v8_score_fused.launches = 0
+    chunk_out = ln.score_chunk_device(ints_dev, counts_dev, table, lfm_dev,
+                                      V8_BETA_SIGMA, float(V8_MAX_DEVIATION))
+    chunk_launches = v8_score_fused.launches
+    check(all(o.device.type == "cuda" for o in chunk_out) and
+          chunk_launches == 1, "score_chunk_device keeps its results on the "
+          f"card and launches kernel C once ({chunk_launches})")
+    chunk_same = float((chunk_out[0] == got[0]).float().mean())
+    check(chunk_same > 0.999 and torch.equal(chunk_out[1], got[1]),
+          f"score_chunk_device's winners against score_traces': {chunk_same}")
+    chunk_ms = time_ms(lambda: ln.score_chunk_device(
+        ints_dev, counts_dev, table, lfm_dev, V8_BETA_SIGMA,
+        float(V8_MAX_DEVIATION)), 5)
+    prep_ms = time_ms(lambda: ln._contrib_invalid(
+        torch.from_numpy(log_int[:ln.CUDA_CHUNK]).to(dev),
+        torch.from_numpy(cats[:ln.CUDA_CHUNK]).to(dev), lfm_dev,
+        V8_BETA_SIGMA, float(V8_MAX_DEVIATION)), 5)
+    del contrib, invalid, got, ref, ints_dev, counts_dev, chunk_out
+
+    # The per-trace float64 host oracle, and the CPU run.
+    t = time.perf_counter()
+    for i in range(V8_ORACLE):
+        want = _intensities_to_signal_lognormal_v8(
+            ints[i].tolist(), beta=V8_BETA, beta_sigma=V8_BETA_SIGMA,
+            max_possible=K, allow_multidrop=True,
+            max_deviation=V8_MAX_DEVIATION, categories=cats[i].tolist(),
+            log_fluor_means=lfm.tolist())[2]
+        have = tuple(int(v) for v in seqs[i]) if found[i] else None
+        check(have == want, f"trace {i}: card {have}, host oracle {want}")
+    oracle_s = (time.perf_counter() - t) / V8_ORACLE
+    t = time.perf_counter()
+    on_cpu = ln.score_traces(ints[:V8_CPU], cats[:V8_CPU], device="cpu", **kw)
+    cpu_s = time.perf_counter() - t
+    check(np.array_equal(on_cpu[0], seqs[:V8_CPU]) and
+          np.array_equal(on_cpu[1], found[:V8_CPU]) and
+          np.allclose(on_cpu[2], best_ls[:V8_CPU], rtol=1e-6, atol=0),
+          "score_traces on the card against device='cpu'")
+    walls = [r["wall_s"] for r in runs]
+    numbers = {
+        "shape": {"T": T, "F": F, "nv": K + 1, "S": S}, "max_abs_err": err_c,
+        "ms": c_med, "plain_ms": statistics.median(twin_ms),
+        "bound_ms": c_bound, "bound_by": c_by,
+        "share_of_bound": c_bound / c_med,
+        "matmul_composition_ms": statistics.median(mm_ms),
+        "matmul_composition_winners_differing": mm_differ}
+    emit("v8", **numbers, **ptxas["v8_score"], warmup_s=warm_s,
+         wall_s_median=statistics.median(walls),
+         traces_per_s=T / statistics.median(walls), runs=runs,
+         launches_per_call=len(chunks), chunk=ln.CUDA_CHUNK,
+         found_share=float(found.mean()), ms_runs=c_ms,
+         plain_ms_runs=twin_ms, matmul_composition_ms_runs=mm_ms,
+         mismatches_vs_twin=mismatches, bound_bytes=nbytes,
+         bound_adds=T * S * F,
+         contrib_invalid_ms_per_chunk=statistics.median(prep_ms),
+         score_chunk_device={"ms_median": statistics.median(chunk_ms),
+                             "launches": chunk_launches,
+                             "winners_equal_to_score_traces": chunk_same},
+         equal_to_host_oracle=V8_ORACLE, host_oracle_s_per_trace=oracle_s,
+         card_vs_cpu={"traces": V8_CPU, "cpu_s": cpu_s,
+                      "max_abs_score_diff": float(np.abs(
+                          on_cpu[2] - best_ls[:V8_CPU]).max())},
+         note="wall = score_traces from host float64 arrays to host "
+              "results; ms = kernel C alone on resident contributions, its "
+              "launches per call back to back (CUDA events, median of 10); "
+              "plain_ms = the twin in chunks of V8_TWIN_CHUNK; the matmul "
+              "form is a composition of library calls (two float32 "
+              "products and a masked argmax in chunks of V8_MATMUL_CHUNK), "
+              "not one call, and nothing in the port calls it")
+
+    # A synthetic track CSV through Pipeline.fluor_counts, both ingestion
+    # paths, against device="cpu".
+    # The subcommand's configuration: multidrop allowed, as the reference
+    # fitter's default.
+    cfg = PipelineConfig(lognormal=LognormalConfig(max_possible=K,
+                                                   allow_multidrop=True))
+    pipe = Pipeline(cfg, device=dev, profile=True)
+    cpu_pipe = Pipeline(cfg, device="cpu")
+    launches = {"v8": runs[0]["launches"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tracks.csv")
+        t = time.perf_counter()
+        write_v8_tracks_csv(path, *make_v8_workload(FC_ROWS, F, K, seed=1)[:2])
+        write_s = time.perf_counter() - t
+        fit_kw = dict(beta=V8_BETA, beta_sigma=V8_BETA_SIGMA)
+        pipe.fluor_counts(path, **fit_kw)
+        fc_runs = []
+        for _ in range(FC_REPS):
+            profiling.reset_timings()
+            v8_score_fused.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fit = pipe.fluor_counts(path, **fit_kw)
+            torch.cuda.synchronize()
+            fc_runs.append({
+                "wall_s": time.perf_counter() - t,
+                "launches": {"v8_score": v8_score_fused.launches},
+                "stage_s": profiling.timings()["api/fluor_counts"]["total"]})
+        launches["fluor_counts"] = fc_runs[0]["launches"]
+        check(all(r["launches"]["v8_score"] == 1 for r in fc_runs),
+              f"fluor_counts launched kernel C once: {fc_runs}")
+        # The pieces of the arrays path, each alone.
+        t = time.perf_counter()
+        arrs = read_track_photometries_arrays(path)
+        parse_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ln.score_traces(arrs["intensities"].astype(np.float64),
+                        arrs["categories"], device=dev, **kw)
+        score_s = time.perf_counter() - t
+        t = time.perf_counter()
+        photometries, _ = read_track_photometries_csv(path)
+        dict_read_s = time.perf_counter() - t
+        v8_score_fused.launches = 0
+        t = time.perf_counter()
+        via_dict = pipe.fluor_counts(photometries, **fit_kw)
+        dict_fit_s = time.perf_counter() - t
+        launches["fluor_counts_dict"] = {"v8_score": v8_score_fused.launches}
+        t = time.perf_counter()
+        on_cpu = cpu_pipe.fluor_counts(path, **fit_kw)
+        cpu_s = time.perf_counter() - t
+        check(fit[1] == FC_ROWS and fit[:3] == via_dict[:3] == on_cpu[:3]
+              and sorted(fit[3]) == sorted(via_dict[3]) and
+              [i[:11] for i in fit[3]] == [i[:11] for i in on_cpu[3]],
+              f"fluor_counts: arrays path {fit[1:3]}, dict path "
+              f"{via_dict[1:3]}, CPU {on_cpu[1:3]}")
+        check(fit[2] < 0.05 * FC_ROWS and launches["fluor_counts_dict"] ==
+              {"v8_score": 1}, f"{fit[2]} of {FC_ROWS} traces unfit")
+
+        # The calibrated flow on the same CSV.
+        v8_score_fused.launches = 0
+        t = time.perf_counter()
+        cal = pipe.fluor_counts_calibrated(path)
+        cal_s = time.perf_counter() - t
+        launches["fluor_counts_calibrated"] = {
+            "v8_score": v8_score_fused.launches}
+        t = time.perf_counter()
+        cal_cpu = cpu_pipe.fluor_counts_calibrated(path)
+        cal_cpu_s = time.perf_counter() - t
+        check(cal[4] == cal_cpu[4] and cal[:3] == cal_cpu[:3] and
+              launches["fluor_counts_calibrated"] == {"v8_score": 2},
+              f"fluor_counts_calibrated: card {cal[1:3]}, {cal[4]}; CPU "
+              f"{cal_cpu[1:3]}, {cal_cpu[4]}")
+        check(abs(cal[4]["beta"] - V8_BETA) < 0.1 * V8_BETA,
+              f"recovered beta {cal[4]['beta']}")
+
+        # The experiment's own track CSV: not lognormal ladders, so it must
+        # run and equal the CPU run, no more.
+        if experiment_csv is None:
+            small = np.clip(make_experiment_stack(**EXP_SMALL), 0,
+                            65535).astype(np.uint16)
+            exp_path = os.path.join(tmp, "experiment.csv")
+            Pipeline(device=dev).run_experiment(
+                small, max_candidates=EXP_SMALL_K, csv_path=exp_path)
+            with open(exp_path) as fh:
+                experiment_csv = fh.read()
+        exp_path = os.path.join(tmp, "experiment.csv")
+        with open(exp_path, "w") as fh:
+            fh.write(experiment_csv)
+        exp_arrs = read_track_photometries_arrays(exp_path)
+        on = exp_arrs["intensities"][exp_arrs["categories"]]
+        exp_kw = dict(beta=float(np.median(on)), beta_sigma=0.3)
+        v8_score_fused.launches = 0
+        exp_fit = pipe.fluor_counts(exp_path, **exp_kw)
+        launches["fluor_counts_experiment_csv"] = {
+            "v8_score": v8_score_fused.launches}
+        exp_cpu = cpu_pipe.fluor_counts(exp_path, **exp_kw)
+        # Rows whose rounded (field, h, w) collide count once (first wins).
+        check(0 < exp_fit[1] <= len(exp_arrs["channels"]) and
+              exp_fit[:3] == exp_cpu[:3] and
+              launches["fluor_counts_experiment_csv"]["v8_score"] >= 1,
+              f"the experiment's track CSV: card {exp_fit[1:3]}, CPU "
+              f"{exp_cpu[1:3]}")
+        fc_walls = [r["wall_s"] for r in fc_runs]
+        emit("fluor_counts", rows=FC_ROWS, frames=F, max_possible=K,
+             csv_write_s=write_s, wall_s_median=statistics.median(fc_walls),
+             traces_per_s=FC_ROWS / statistics.median(fc_walls),
+             runs=fc_runs, none_count=fit[2], distinct_signals=len(fit[0]),
+             pieces_s={"native_parse": parse_s, "score_traces": score_s,
+                       "rest_dedupe_meta_decode":
+                           statistics.median(fc_walls) - parse_s - score_s},
+             dict_path={"read_s": dict_read_s, "fit_s": dict_fit_s},
+             cpu_s=cpu_s, launches=launches,
+             calibrated={"wall_s": cal_s, "cpu_s": cal_cpu_s,
+                         "calibration": cal[4], "none_count": cal[2],
+                         "traces": cal[1]},
+             experiment_csv={"rows": len(exp_arrs["channels"]),
+                             "traces": exp_fit[1], "none_count": exp_fit[2],
+                             "distinct_signals": len(exp_fit[0]), **exp_kw},
+             note="wall = Pipeline.fluor_counts from a track CSV path to "
+                  "(signals, total, none_count, fit_info); pieces_s are "
+                  "the native parse and score_traces each run alone, and "
+                  "what they leave of the median wall; all results equal "
+                  "the device='cpu' run's")
+
+        # The four subcommands, each in a process of its own.
+        pkls = [os.path.join(tmp, f"signals_{i}.pkl") for i in range(3)]
+        summary, cli_s = run_cli(
+            ["fluor-counts", path, "--beta", str(V8_BETA), "--beta-sigma",
+             str(V8_BETA_SIGMA), "--signals-pkl", pkls[0]])
+        with open(pkls[0], "rb") as fh:
+            check(pickle.load(fh) == fit[0] and
+                  (summary["traces"], summary["none"],
+                   summary["distinct_signals"]) == (fit[1], fit[2],
+                                                    len(fit[0])),
+                  f"fluor-counts prints and pickles the API's counts: "
+                  f"{summary}")
+        emit("cli", command="fluor-counts", traces=summary["traces"],
+             none=summary["none"], wall_s=cli_s)
+        summary, cli_s = run_cli(["fluor-counts", path, "--auto-calibrate"])
+        check(summary["calibration"] == json.loads(json.dumps(cal[4])) and
+              (summary["traces"], summary["none"]) == (cal[1], cal[2]),
+              f"fluor-counts --auto-calibrate prints the API's "
+              f"calibration: {summary}")
+        emit("cli", command="fluor-counts --auto-calibrate",
+             traces=summary["traces"], calibration=summary["calibration"],
+             wall_s=cli_s)
+        for i in (1, 2):  # two control fits through the dict path
+            c_ints, c_cats, _ = make_v8_workload(FC_CONTROL_ROWS, F, K,
+                                                 seed=1 + i)
+            control = {"ch1": {0: {
+                (j, j): (tuple(c), tuple(x), j) for j, (c, x) in enumerate(
+                    zip(c_cats.tolist(),
+                        np.rint(c_ints).astype(np.int64).tolist()))}}}
+            with open(pkls[i], "wb") as fh:
+                pickle.dump(pipe.fluor_counts(control, **fit_kw)[0], fh)
+        for argv in (
+                # Signals up to cycle 8 without multidrop: the peak
+                # finder's cost grows steeply with the signals it is given.
+                ["background-correct", pkls[0], "--control-pkls", pkls[1],
+                 pkls[2], "--num-cycles", str(F), "--omit-multidrop",
+                 "--total", "8", "--control-total", "8"],
+                ["remainder-correct", path, "--method", "4"]):
+            out_dir = os.path.join(tmp, argv[0])
+            extra = (["--output-dir", out_dir] if argv[0] ==
+                     "background-correct" else
+                     ["--output", os.path.join(tmp, "adjusted.csv")])
+            summary, cli_s = run_cli(argv + extra)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                check(cli_main(argv + extra) == 0,
+                      f"{argv[0]} in this process exits 0")
+            check(summary == json.loads(buf.getvalue()),
+                  f"{argv[0]}: the subcommand prints what this process "
+                  f"computes: {summary}, {buf.getvalue()}")
+            emit("cli", command=argv[0], wall_s=cli_s, **{
+                k: v for k, v in summary.items() if k in (
+                    "signals_in", "signals_out", "counts_in", "counts_out",
+                    "rows", "method")})
+    return {"launches": launches, "kernels": {"v8_score": numbers}}
+
+
+def headline_phases(tmpl, dev, ptxas, profile=False):
+    """Kernels A and B against their twins at the headline shapes, the
+    experiment step through ``Pipeline(device="cuda").run_stack``, the card
+    against the CPU and the step's timing; emits the "kernel_a",
+    "kernel_b", "slice", "card_vs_cpu" and "timing" lines (and "profile"
+    with ``profile``) and returns the kernels' launches per step and their
+    numbers at these shapes."""
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.config import (
+        DetectConfig, PhotometryConfig, PipelineConfig, RegistrationConfig)
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        _threshold_and_extract_batch, find_candidates_batch)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused, candidate_map_plain)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.ops.photometry import (
+        mexican_hat_batch)
+    from fluorosequencingimageanalysis_torch.ops.registration import (
+        phase_correlate_stack)
+    from fluorosequencingimageanalysis_torch.parallel.mesh import (
+        experiment_step)
+    from fluorosequencingimageanalysis_torch.utils.convert import step_kwargs
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_stack, recall)
+
+    # Kernel A against its twin.
+    stack, spots = make_stack(F, C, HW, HW)
+    imgs = torch.from_numpy(stack.reshape(F * C, HW, HW)).to(dev)
+    # The median is exact and the taps keep the twin's FMA order: the
+    # kernel must equal the twin bit for bit.
+    cm_k = candidate_map_fused(imgs, tmpl)
+    cm_p = candidate_map_plain(imgs, tmpl)
+    torch.cuda.synchronize()
+    err_a = float((cm_k - cm_p).abs().max())
+    check(err_a == 0.0,
+          f"kernel A vs twin at {tuple(imgs.shape)} (max abs err {err_a})")
+    a_ms = time_ms(lambda: candidate_map_fused(imgs, tmpl), 20)
+    a_plain_ms = time_ms(lambda: candidate_map_plain(imgs, tmpl), 10)
+    sweep = []
+    for i, (h, w) in enumerate(SWEEP):
+        x = torch.from_numpy(planted(h, w, i)).to(dev)
+        k, p = candidate_map_fused(x, tmpl), candidate_map_plain(x, tmpl)
+        e = float((k - p).abs().max())
+        check(e == 0.0, f"kernel A vs twin at {(h, w)} (max abs err {e})")
+        sweep.append({"shape": [h, w], "max_abs_err": e})
+    a_bound, a_by = bound(2 * imgs.numel() * 4,
+                          imgs.numel() * A_OPS_PER_PIXEL)
+    a_med = statistics.median(a_ms)
+    emit("kernel_a", shape=list(imgs.shape), max_abs_err=err_a,
+         ms_median=a_med, plain_ms_median=statistics.median(a_plain_ms),
+         bound_ms=a_bound, bound_by=a_by, share_of_bound=a_bound / a_med,
+         **ptxas["candidate_map"], ms_runs=a_ms, plain_ms_runs=a_plain_ms,
+         sweep=sweep)
+
+    # Kernel B against its twin on every candidate of the headline step.
+    hs, ws, valid, _ = _threshold_and_extract_batch(cm_p, MAX_CANDIDATES,
+                                                    2.0)
+    b_report = {ts: kernel_b_report(imgs, hs, ws, valid, NUM_ITERS, ts,
+                                    reps=10, plain_reps=3)
+                for ts in (1, 2)}
+    for ts, rep in b_report.items():
+        emit("kernel_b", theta_starts=ts, num_iters=NUM_ITERS,
+             **rep, **ptxas["fit_quality"])
+    err_b = max(rep["max_abs_err_all_outputs"] for rep in b_report.values())
+
+    # The slice on the card, through the user's entry point.
+    cfg = PipelineConfig(
+        detect=DetectConfig(max_candidates=MAX_CANDIDATES,
+                            num_iters=NUM_ITERS),
+        registration=RegistrationConfig(upsample_factor=UPSAMPLE),
+        photometry=PhotometryConfig(method="mexican_hat"))
+    pipe = Pipeline(cfg, device="cuda")
+    candidate_map_fused.launches = 0
+    fit_quality.launches = 0
+    out = pipe.run_stack(stack)
+    launches = {"candidate_map": candidate_map_fused.launches,
+                "fit_quality": fit_quality.launches}
+    check(all(n > 0 for n in launches.values()),
+          f"both kernels launched in the slice: {launches}")
+    S = out["spot_h"].shape[-1]
+    dims = {"F": F, "C": C, "K": MAX_CANDIDATES, "S": S, "7": 7}
+    check(set(out) == set(SCHEMA), f"output keys {sorted(out)}")
+    for k, (shape, dtype) in SCHEMA.items():
+        want = tuple(dims[c] for c in shape)
+        check(out[k].shape == want and out[k].dtype.name == dtype,
+              f"{k}: {out[k].shape} {out[k].dtype}, want {want} {dtype}")
+    for k in ("params", "center_h", "spot_h", "photometry"):
+        v = out["keep"] if out[k].shape[2] == MAX_CANDIDATES \
+            else out["spot_valid"]
+        check(np.isfinite(out[k][v]).all(), f"{k} finite where kept")
+    rec = recall(spots, out, tol=1.0)
+    check(rec >= 0.95, f"recall of planted spots within 1 px: {rec}")
+    emit("slice", launches=launches, recall_1px=rec,
+         recall_0p2px=recall(spots, out, tol=0.2),
+         spot_count_mean=float(out["spot_count"].mean()),
+         cand_count_mean=float(out["cand_count"].mean()),
+         overflow_images=int(out["spot_overflow"].sum()))
+
+    # Card against CPU (plain path) on a reduced stack.
+    small, _ = make_stack(2, 2, HW, HW, seed=1)
+    gpu = pipe.run_stack(small)
+    cpu = Pipeline(cfg, device="cpu").run_stack(small)
+    xs = torch.from_numpy(small.reshape(4, HW, HW))
+    cg = find_candidates_batch(xs.to(dev), max_candidates=MAX_CANDIDATES)
+    cc = find_candidates_batch(xs, max_candidates=MAX_CANDIDATES)
+    overlaps, matched = [], []
+    for i in range(4):
+        sg = {(int(a), int(b)) for a, b, v in zip(*(t[i].cpu() for t in
+                                                    cg[:3])) if v}
+        sc = {(int(a), int(b)) for a, b, v in zip(*(t[i] for t in cc[:3]))
+              if v}
+        overlaps.append(len(sg & sc) / max(len(sg | sc), 1))
+        f, c = divmod(i, 2)
+        vg, vc = gpu["spot_valid"][f, c], cpu["spot_valid"][f, c]
+        pg = np.stack([gpu["spot_h"][f, c][vg], gpu["spot_w"][f, c][vg]], 1)
+        pc = np.stack([cpu["spot_h"][f, c][vc], cpu["spot_w"][f, c][vc]], 1)
+        d = np.abs(pc[:, None, :] - pg[None, :, :]).max(-1).min(1)
+        matched.append(float(np.mean(d <= B_CENTER)))
+    check(min(overlaps) >= 0.99, f"candidate set overlap {overlaps}")
+    check(min(matched) >= 0.99,
+          f"share of CPU kept spots with a card spot within 1e-3 px "
+          f"{matched}")
+    check(np.array_equal(gpu["offsets_h"], cpu["offsets_h"]) and
+          np.array_equal(gpu["offsets_w"], cpu["offsets_w"]),
+          "offsets equal on card and CPU")
+    emit("card_vs_cpu", shape=list(small.shape), cand_overlap=overlaps,
+         kept_matched_1e3=matched,
+         spot_count_card=gpu["spot_count"].ravel().tolist(),
+         spot_count_cpu=cpu["spot_count"].ravel().tolist())
+
+    # Timing of the step (upload, compute and download) and its stages.
+    x_host = stack
+    steps = []
+    pipe.run_stack(x_host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe.run_stack(x_host)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(steps)
+    xs = torch.from_numpy(stack).to(dev)
+    stage_ms = {
+        "registration": statistics.median(time_ms(
+            lambda: phase_correlate_stack(xs, UPSAMPLE), 5)),
+        "candidate_map_kernel": statistics.median(a_ms),
+        "extraction": statistics.median(time_ms(
+            lambda: _threshold_and_extract_batch(cm_k, MAX_CANDIDATES, 2.0),
+            5)),
+        "fit_quality_kernel": b_report[1]["ms_median"],
+    }
+    fq = fit_quality(imgs, hs, ws, NUM_ITERS, 1)
+    passed = valid & ~(fq[4] < 0.7)
+    stage_ms["consolidate"] = statistics.median(time_ms(
+        lambda: consolidate(fq[1], fq[2], fq[4], passed, 4.0), 5))
+    rch = torch.randint(9, HW - 9, (F * C, 512), device=dev,
+                        dtype=torch.int32)
+    stage_ms["mexican_hat_photometry"] = statistics.median(time_ms(
+        lambda: mexican_hat_batch(imgs, rch, rch), 5))
+    kw = step_kwargs(cfg)
+    host = torch.from_numpy(stack)
+    pinned = host.pin_memory()
+    with torch.no_grad():
+        dev_out = experiment_step(xs, **kw)
+        split_ms = {
+            "upload_pageable": host_ms(lambda: host.to(dev), 5),
+            "upload_pinned": host_ms(
+                lambda: pinned.to(dev, non_blocking=True), 5),
+            "device_step": host_ms(lambda: experiment_step(xs, **kw), 5),
+            "download": host_ms(
+                lambda: [v.cpu() for v in dev_out.values()], 5),
+        }
+    emit("timing", step_s_median=step_s, step_s_runs=steps,
+         images_per_s=F * C / step_s, fields_per_s=F / step_s,
+         peak_mem_bytes=int(peak), stage_ms=stage_ms, split_ms=split_ms,
+         note="step = run_stack from a host numpy stack to host numpy "
+              "outputs; stage times are device times of each stage alone; "
+              "split_ms are host-clock medians of the step's parts")
+
+    # Optional: where the device's time goes within run_stack.
+    if profile:
+        prof = profile_steps(lambda: pipe.run_stack(x_host), 3)
+        prof["device_busy_ms_per_step"] = prof["device_busy_us"] / 3e3
+        # The profiler slows the host; the same device work over the
+        # unprofiled step time estimates the share without that overhead.
+        prof["device_busy_share_of_unprofiled_step"] = (
+            prof["device_busy_ms_per_step"] / (step_s * 1e3))
+        emit("profile", **prof)
+
+    b1 = b_report[1]
+    return {
+        "launches": launches,
+        "kernels": {
+            "candidate_map": {
+                "max_abs_err": err_a, "ms": a_med,
+                "plain_ms": statistics.median(a_plain_ms),
+                "bound_ms": a_bound, "bound_by": a_by,
+                "share_of_bound": a_bound / a_med},
+            "fit_quality": {
+                "max_abs_err": err_b, "ms": b1["ms_median"],
+                "plain_ms": b1["plain_ms_median"],
+                "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+                "share_of_bound": b1["share_of_bound"]}}}
 
 
 def host_profile(pipe, stack, kw, top=15):
@@ -1299,37 +1934,27 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also trace three steps with torch.profiler and "
                          "profile the experiment's host half with cProfile")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated groups of phases to run, of "
+                         + ", ".join(PHASES) + " (default: all of them)")
     args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown or not phases:
+        raise SystemExit(f"chip_smoke: --phases takes names of {PHASES}, "
+                         f"got {args.phases!r}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device")
     from fluorosequencingimageanalysis_torch import _build
-    from fluorosequencingimageanalysis_torch.api import Pipeline
-    from fluorosequencingimageanalysis_torch.config import (
-        DetectConfig, PhotometryConfig, PipelineConfig, RegistrationConfig)
     from fluorosequencingimageanalysis_torch.ops.candidates import (
-        DEFAULT_CORRELATION_MATRIX, _threshold_and_extract_batch,
-        find_candidates_batch)
-    from fluorosequencingimageanalysis_torch.ops.consolidate import (
-        consolidate)
-    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
-        candidate_map_fused, candidate_map_plain)
-    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
-        fit_quality)
-    from fluorosequencingimageanalysis_torch.ops.photometry import (
-        mexican_hat_batch)
-    from fluorosequencingimageanalysis_torch.ops.registration import (
-        phase_correlate_stack)
-    from fluorosequencingimageanalysis_torch.parallel.mesh import (
-        experiment_step)
-    from fluorosequencingimageanalysis_torch.utils.convert import step_kwargs
-    from fluorosequencingimageanalysis_torch.utils.synth import (
-        make_stack, recall)
+        DEFAULT_CORRELATION_MATRIX)
 
     dev = torch.device("cuda")
     tmpl = DEFAULT_CORRELATION_MATRIX
 
-    # 1. Device and build: one compiler per source (nvcc for the kernels,
-    # g++ for the tracker and the two step-fit cores), all started together.
+    # Device and build: one compiler per source (nvcc for the kernels, g++
+    # for the tracker, the two step-fit cores and the CSV parser), all
+    # started together.
     t0 = time.perf_counter()
     _build.build_all(KERNELS + HOST_CORES)
     for name in KERNELS + HOST_CORES:
@@ -1339,223 +1964,101 @@ def main():
     smi = nvidia_smi_line()
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0], build_s=build_s, ptxas=ptxas)
+         python=sys.version.split()[0], build_s=build_s, ptxas=ptxas,
+         phases=phases)
 
-    # 2. Kernel A against its twin.
-    stack, spots = make_stack(F, C, HW, HW)
-    imgs = torch.from_numpy(stack.reshape(F * C, HW, HW)).to(dev)
-    # The median is exact and the taps keep the twin's FMA order: the
-    # kernel must equal the twin bit for bit.
-    cm_k = candidate_map_fused(imgs, tmpl)
-    cm_p = candidate_map_plain(imgs, tmpl)
-    torch.cuda.synchronize()
-    err_a = float((cm_k - cm_p).abs().max())
-    check(err_a == 0.0,
-          f"kernel A vs twin at {tuple(imgs.shape)} (max abs err {err_a})")
-    a_ms = time_ms(lambda: candidate_map_fused(imgs, tmpl), 20)
-    a_plain_ms = time_ms(lambda: candidate_map_plain(imgs, tmpl), 10)
-    sweep = []
-    for i, (h, w) in enumerate(SWEEP):
-        x = torch.from_numpy(planted(h, w, i)).to(dev)
-        k, p = candidate_map_fused(x, tmpl), candidate_map_plain(x, tmpl)
-        e = float((k - p).abs().max())
-        check(e == 0.0, f"kernel A vs twin at {(h, w)} (max abs err {e})")
-        sweep.append({"shape": [h, w], "max_abs_err": e})
-    a_bound, a_by = bound(2 * imgs.numel() * 4,
-                          imgs.numel() * A_OPS_PER_PIXEL)
-    a_med = statistics.median(a_ms)
-    emit("kernel_a", shape=list(imgs.shape), max_abs_err=err_a,
-         ms_median=a_med, plain_ms_median=statistics.median(a_plain_ms),
-         bound_ms=a_bound, bound_by=a_by, share_of_bound=a_bound / a_med,
-         **ptxas["candidate_map"], ms_runs=a_ms, plain_ms_runs=a_plain_ms,
-         sweep=sweep)
-
-    # 3. Kernel B against its twin on every candidate of the headline step.
-    hs, ws, valid, _ = _threshold_and_extract_batch(cm_p, MAX_CANDIDATES,
-                                                    2.0)
-    b_report = {ts: kernel_b_report(imgs, hs, ws, valid, NUM_ITERS, ts,
-                                    reps=10, plain_reps=3)
-                for ts in (1, 2)}
-    for ts, rep in b_report.items():
-        emit("kernel_b", theta_starts=ts, num_iters=NUM_ITERS,
-             **rep, **ptxas["fit_quality"])
-    err_b = max(rep["max_abs_err_all_outputs"] for rep in b_report.values())
-
-    # 4. The slice on the card, through the user's entry point.
-    cfg = PipelineConfig(
-        detect=DetectConfig(max_candidates=MAX_CANDIDATES,
-                            num_iters=NUM_ITERS),
-        registration=RegistrationConfig(upsample_factor=UPSAMPLE),
-        photometry=PhotometryConfig(method="mexican_hat"))
-    pipe = Pipeline(cfg, device="cuda")
-    candidate_map_fused.launches = 0
-    fit_quality.launches = 0
-    out = pipe.run_stack(stack)
-    launches = {"candidate_map": candidate_map_fused.launches,
-                "fit_quality": fit_quality.launches}
-    check(all(n > 0 for n in launches.values()),
-          f"both kernels launched in the slice: {launches}")
-    S = out["spot_h"].shape[-1]
-    dims = {"F": F, "C": C, "K": MAX_CANDIDATES, "S": S, "7": 7}
-    check(set(out) == set(SCHEMA), f"output keys {sorted(out)}")
-    for k, (shape, dtype) in SCHEMA.items():
-        want = tuple(dims[c] for c in shape)
-        check(out[k].shape == want and out[k].dtype.name == dtype,
-              f"{k}: {out[k].shape} {out[k].dtype}, want {want} {dtype}")
-    for k in ("params", "center_h", "spot_h", "photometry"):
-        v = out["keep"] if out[k].shape[2] == MAX_CANDIDATES \
-            else out["spot_valid"]
-        check(np.isfinite(out[k][v]).all(), f"{k} finite where kept")
-    rec = recall(spots, out, tol=1.0)
-    check(rec >= 0.95, f"recall of planted spots within 1 px: {rec}")
-    emit("slice", launches=launches, recall_1px=rec,
-         recall_0p2px=recall(spots, out, tol=0.2),
-         spot_count_mean=float(out["spot_count"].mean()),
-         cand_count_mean=float(out["cand_count"].mean()),
-         overflow_images=int(out["spot_overflow"].sum()))
-
-    # 5. Card against CPU (plain path) on a reduced stack.
-    small, _ = make_stack(2, 2, HW, HW, seed=1)
-    gpu = pipe.run_stack(small)
-    cpu = Pipeline(cfg, device="cpu").run_stack(small)
-    xs = torch.from_numpy(small.reshape(4, HW, HW))
-    cg = find_candidates_batch(xs.to(dev), max_candidates=MAX_CANDIDATES)
-    cc = find_candidates_batch(xs, max_candidates=MAX_CANDIDATES)
-    overlaps, matched = [], []
-    for i in range(4):
-        sg = {(int(a), int(b)) for a, b, v in zip(*(t[i].cpu() for t in
-                                                    cg[:3])) if v}
-        sc = {(int(a), int(b)) for a, b, v in zip(*(t[i] for t in cc[:3]))
-              if v}
-        overlaps.append(len(sg & sc) / max(len(sg | sc), 1))
-        f, c = divmod(i, 2)
-        vg, vc = gpu["spot_valid"][f, c], cpu["spot_valid"][f, c]
-        pg = np.stack([gpu["spot_h"][f, c][vg], gpu["spot_w"][f, c][vg]], 1)
-        pc = np.stack([cpu["spot_h"][f, c][vc], cpu["spot_w"][f, c][vc]], 1)
-        d = np.abs(pc[:, None, :] - pg[None, :, :]).max(-1).min(1)
-        matched.append(float(np.mean(d <= B_CENTER)))
-    check(min(overlaps) >= 0.99, f"candidate set overlap {overlaps}")
-    check(min(matched) >= 0.99,
-          f"share of CPU kept spots with a card spot within 1e-3 px "
-          f"{matched}")
-    check(np.array_equal(gpu["offsets_h"], cpu["offsets_h"]) and
-          np.array_equal(gpu["offsets_w"], cpu["offsets_w"]),
-          "offsets equal on card and CPU")
-    emit("card_vs_cpu", shape=list(small.shape), cand_overlap=overlaps,
-         kept_matched_1e3=matched,
-         spot_count_card=gpu["spot_count"].ravel().tolist(),
-         spot_count_cpu=cpu["spot_count"].ravel().tolist())
-
-    # 6. Timing of the step (upload, compute and download) and its stages.
-    x_host = stack
-    steps = []
-    pipe.run_stack(x_host)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pipe.run_stack(x_host)
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t)
-    peak = torch.cuda.max_memory_allocated()
-    step_s = statistics.median(steps)
-    xs = torch.from_numpy(stack).to(dev)
-    stage_ms = {
-        "registration": statistics.median(time_ms(
-            lambda: phase_correlate_stack(xs, UPSAMPLE), 5)),
-        "candidate_map_kernel": statistics.median(a_ms),
-        "extraction": statistics.median(time_ms(
-            lambda: _threshold_and_extract_batch(cm_k, MAX_CANDIDATES, 2.0),
-            5)),
-        "fit_quality_kernel": b_report[1]["ms_median"],
-    }
-    fq = fit_quality(imgs, hs, ws, NUM_ITERS, 1)
-    passed = valid & ~(fq[4] < 0.7)
-    stage_ms["consolidate"] = statistics.median(time_ms(
-        lambda: consolidate(fq[1], fq[2], fq[4], passed, 4.0), 5))
-    rch = torch.randint(9, HW - 9, (F * C, 512), device=dev,
-                        dtype=torch.int32)
-    stage_ms["mexican_hat_photometry"] = statistics.median(time_ms(
-        lambda: mexican_hat_batch(imgs, rch, rch), 5))
-    kw = step_kwargs(cfg)
-    host = torch.from_numpy(stack)
-    pinned = host.pin_memory()
-    with torch.no_grad():
-        dev_out = experiment_step(xs, **kw)
-        split_ms = {
-            "upload_pageable": host_ms(lambda: host.to(dev), 5),
-            "upload_pinned": host_ms(
-                lambda: pinned.to(dev, non_blocking=True), 5),
-            "device_step": host_ms(lambda: experiment_step(xs, **kw), 5),
-            "download": host_ms(
-                lambda: [v.cpu() for v in dev_out.values()], 5),
-        }
-    emit("timing", step_s_median=step_s, step_s_runs=steps,
-         images_per_s=F * C / step_s, fields_per_s=F / step_s,
-         peak_mem_bytes=int(peak), stage_ms=stage_ms, split_ms=split_ms,
-         note="step = run_stack from a host numpy stack to host numpy "
-              "outputs; stage times are device times of each stage alone; "
-              "split_ms are host-clock medians of the step's parts")
-
-    # 7. The experiment path, config 4, through the user's entry point.
-    exp = experiment_phase(tmpl, dev, profile_host=args.profile)
-
-    # 8. The z-stack and single-image front doors, config 2.
-    zs = zstack_phases(tmpl, dev)
-
-    # 9. The movie front door and the step fitters, config 3.
-    tt = timetrace_phases(tmpl, dev)
-
-    # 10. Optional: where the device's time goes within run_stack.
-    if args.profile:
-        prof = profile_steps(lambda: pipe.run_stack(x_host), 3)
-        prof["device_busy_ms_per_step"] = prof["device_busy_us"] / 3e3
-        # The profiler slows the host; the same device work over the
-        # unprofiled step time estimates the share without that overhead.
-        prof["device_busy_share_of_unprofiled_step"] = (
-            prof["device_busy_ms_per_step"] / (step_s * 1e3))
-        emit("profile", **prof)
+    # Each group sets the kernels' launch counts to 0 just before it drives
+    # its path and reads them just after.
+    done = {}
+    if "headline" in phases:
+        done["headline"] = headline_phases(tmpl, dev, ptxas,
+                                           profile=args.profile)
+    if "experiment" in phases:  # config 4
+        done["experiment"] = experiment_phase(tmpl, dev,
+                                              profile_host=args.profile)
+    if "zstack" in phases:  # config 2 and the single-image front door
+        done["zstack"] = zstack_phases(tmpl, dev)
+    if "timetrace" in phases:  # the movie and config 3
+        done["timetrace"] = timetrace_phases(tmpl, dev)
+    if "fluor" in phases:  # config 5
+        done["fluor"] = fluor_phases(
+            dev, ptxas, done.get("experiment", {}).get("track_csv"))
 
     print(smi, flush=True)
-    # No single PyTorch call computes either function: library_ms is null.
-    kernels = [
-        {"name": "candidate_map", "route": "cuda",
-         "source": "fluorosequencingimageanalysis_torch/csrc/"
-                   "candidate_map.cu",
-         "replaces": "fluorosequencingimageanalysis_tpu/ops/"
-                     "pallas_candidates.py:100",
-         "launches": launches["candidate_map"], "max_abs_err": err_a,
-         "ms": a_med, "plain_ms": statistics.median(a_plain_ms),
-         "bound_ms": a_bound, "bound_by": a_by, "library_ms": None,
-         "share_of_bound": a_bound / a_med, **ptxas["candidate_map"],
-         "launches_experiment": exp["launches"]["candidate_map"],
-         "experiment": exp["kernels"]["candidate_map"],
-         **{"launches_" + path: n["candidate_map"]
-            for path, n in {**zs["launches"], **tt["launches"]}.items()},
-         **zs["kernels"]["candidate_map"],
-         **tt["kernels"]["candidate_map"]},
-        {"name": "fit_quality", "route": "cuda",
-         "source": "fluorosequencingimageanalysis_torch/csrc/fit_quality.cu",
-         "replaces": "fluorosequencingimageanalysis_tpu/models/"
-                     "detect.py:36",
-         "launches": launches["fit_quality"], "max_abs_err": err_b,
-         "ms": b_report[1]["ms_median"],
-         "plain_ms": b_report[1]["plain_ms_median"],
-         "bound_ms": b_report[1]["bound_ms"],
-         "bound_by": b_report[1]["bound_by"], "library_ms": None,
-         "share_of_bound": b_report[1]["share_of_bound"],
-         **ptxas["fit_quality"],
-         "launches_experiment": exp["launches"]["fit_quality"],
-         "experiment": exp["kernels"]["fit_quality"],
-         **{"launches_" + path: n["fit_quality"]
-            for path, n in {**zs["launches"], **tt["launches"]}.items()},
-         **zs["kernels"]["fit_quality"], **tt["kernels"]["fit_quality"]},
-    ]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernel_summary(done, ptxas)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def kernel_summary(done, ptxas):
+    """One entry per kernel that a group of this run drove. The top-level
+    numbers of kernels A and B are the headline step's (or, where that
+    group did not run, the first path's that did); each other path's
+    launches and numbers follow under its own name. No single PyTorch call
+    computes any of the three functions: ``library_ms`` is null (kernel
+    C's nearest composition of library calls is timed beside it as
+    ``matmul_composition_ms``)."""
+    meta = {
+        "candidate_map": (
+            "fluorosequencingimageanalysis_torch/csrc/candidate_map.cu",
+            "fluorosequencingimageanalysis_tpu/ops/pallas_candidates.py:100"),
+        "fit_quality": (
+            "fluorosequencingimageanalysis_torch/csrc/fit_quality.cu",
+            "fluorosequencingimageanalysis_tpu/models/detect.py:36"),
+        "v8_score": (
+            "fluorosequencingimageanalysis_torch/csrc/v8_score.cu",
+            "fluorosequencingimageanalysis_tpu/ops/lognormal.py:60"),
+    }
+    # {kernel: [(path, launches, numbers), ...]} in the order of the run.
+    paths = {name: [] for name in meta}
+    for name in ("candidate_map", "fit_quality"):
+        if "headline" in done:
+            h = done["headline"]
+            paths[name].append(("headline", h["launches"][name],
+                                h["kernels"][name]))
+        if "experiment" in done:
+            e = done["experiment"]
+            paths[name].append(("experiment", e["launches"][name],
+                                e["kernels"][name]))
+        for group, first in (("zstack", "zstack_group"),
+                             ("timetrace", "timetrace")):
+            if group in done:
+                g = done[group]
+                by_path = g["kernels"][name]
+                paths[name].append((first, g["launches"][group][name],
+                                    by_path[first]))
+    if "fluor" in done:
+        f = done["fluor"]
+        paths["v8_score"].append(("v8", f["launches"]["v8"]["v8_score"],
+                                  f["kernels"]["v8_score"]))
+    out = []
+    for name, (source, replaces) in meta.items():
+        if not paths[name]:
+            continue
+        _, launches, top = paths[name][0]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches,
+                 **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+                 "library_ms": None, "share_of_bound": top["share_of_bound"],
+                 **ptxas[name]}
+        if name == "v8_score":
+            entry.update({k: v for k, v in top.items() if k not in entry})
+        if "experiment" in done and name != "v8_score":
+            entry["launches_experiment"] = \
+                done["experiment"]["launches"][name]
+            entry["experiment"] = done["experiment"]["kernels"][name]
+        for group in ("zstack", "timetrace", "fluor"):
+            if group not in done:
+                continue
+            for path, n in done[group]["launches"].items():
+                if name in n:
+                    entry["launches_" + path] = n[name]
+            if group != "fluor" and name in done[group]["kernels"]:
+                entry.update(done[group]["kernels"][name])
+        out.append(entry)
+    return out
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 Counterpart of fluorosequencingimageanalysis_tpu/__main__.py over the
 port's api.Pipeline, with the subcommands whose paths the port has, the
-same flags and the same JSON summaries, plus ``--device`` (default cuda):
+same flags and the same JSON summaries, plus ``--device`` (default cuda)
+on the subcommands that use a device:
 
     python -m fluorosequencingimageanalysis_torch run-experiment \\
         --peptide-files cycle_*/field_*.png --output-dir out
@@ -12,6 +13,13 @@ same flags and the same JSON summaries, plus ``--device`` (default cuda):
     python -m fluorosequencingimageanalysis_torch timetrace \\
         --frames movie.tif --output-dir out
     python -m fluorosequencingimageanalysis_torch stepfit tracks.csv
+    python -m fluorosequencingimageanalysis_torch fluor-counts \\
+        out/track_photometries.csv --beta 30000 --beta-sigma 0.2 \\
+        --signals-pkl out/SIGNALS.pkl
+    python -m fluorosequencingimageanalysis_torch background-correct \\
+        out/SIGNALS.pkl --control-pkls c1.pkl c2.pkl --num-cycles 12
+    python -m fluorosequencingimageanalysis_torch remainder-correct \\
+        out/track_photometries.csv
 
 run-experiment groups files by the reference's directory=cycle,
 filename=field convention (flexlibrary.py:1105-1154), runs the one-call
@@ -21,9 +29,11 @@ detect writes the psfs pkl/csv/png artifacts next to each image; zstack
 writes a per-spot CSV; timetrace runs the movie workflow (detect, LC
 tracking, photometry, step fits) and writes the timetrace CSV; stepfit
 step-fits the traces of a track CSV or an .npy matrix and writes the
-per-frame step-fit CSV. Raw uint16 images upload as-is and are cast on the
-device. The other subcommands of the JAX package (fluor-counts,
-background-correct, remainder-correct, simulate) are not registered yet.
+per-frame step-fit CSV; fluor-counts runs the v8 lognormal fit over a track
+CSV (manual beta, or --auto-calibrate) and prints the counts;
+background-correct and remainder-correct are host code and take no
+--device. Raw uint16 images upload as-is and are cast on the device. The
+JAX package's simulate subcommand is not registered yet.
 """
 
 from __future__ import annotations
@@ -334,6 +344,154 @@ def _cmd_stepfit(args):
     return 0
 
 
+def _cmd_fluor_counts(args):
+    from .api import Pipeline
+    from .config import PipelineConfig, LognormalConfig
+
+    # Both modes honor --max-possible / --no-multidrop, and multidrop
+    # defaults ON in both — the reference fitter's default
+    # (lognormal_fitter_v2.py:95-96,166). Manual mode used to ignore
+    # these flags and fit with the library's multidrop-off default.
+    pipe = Pipeline(PipelineConfig(lognormal=LognormalConfig(
+        max_possible=args.max_possible,
+        allow_multidrop=not args.no_multidrop)), device=args.device)
+    if args.auto_calibrate:
+        signals, total, none_count, fit_info, calibration = \
+            pipe.fluor_counts_calibrated(
+                args.tracks_csv, channel=args.channel or "ch1",
+                beta=args.beta,
+                beta_sigma=args.beta_sigma, truncate=args.truncate,
+                ddif=args.ddif, max_possible=args.max_possible,
+                allow_multidrop=not args.no_multidrop,
+                adjustment=not args.no_adjustment)
+    else:
+        if args.beta is None:
+            raise SystemExit("--beta is required without --auto-calibrate")
+        calibration = None
+        signals, total, none_count, fit_info = pipe.fluor_counts(
+            args.tracks_csv, beta=args.beta, beta_sigma=args.beta_sigma,
+            alpha_adjust=args.alpha_adjust,
+            # Manual mode honors --channel too: a multi-channel
+            # experiment CSV raises otherwise (one beta cannot apply
+            # across channels), with no other CLI way to restrict it.
+            **({"channels": [args.channel]} if args.channel else {}))
+    if args.signals_pkl:
+        with open(args.signals_pkl, "wb") as fh:
+            pickle.dump(signals, fh)
+    print(json.dumps({"traces": total, "none": none_count,
+                      "distinct_signals": len(signals),
+                      "calibration": calibration,
+                      "signals_pkl": args.signals_pkl}, default=str))
+    return 0
+
+
+def _cmd_background(args):
+    """Iterative background correction of a SIGNALS.pkl against control
+    experiments (the iterative_background_v2 flow with direct pkl paths
+    instead of the index-CSV indirection)."""
+    from .inference.background import (average_signals, counts_to_percent,
+                                       discard_late_signals, head_truncate,
+                                       iterative_peak_finding_v3,
+                                       signals_std)
+
+    def _load(path, head, total):
+        with open(path, "rb") as fh:
+            signals = pickle.load(fh)
+        signals = {k: c for k, c in signals.items() if k[1]}  # zeros only
+        if head > 0:
+            signals = head_truncate(signals=signals, num_cycles=head)
+        if total is not None:
+            signals = discard_late_signals(signals=signals, max_cycle=total)
+        return signals
+
+    boc = _load(args.signals_pkl, args.head, args.total)
+    if args.omit_multidrop:
+        boc = {k: c for k, c in boc.items() if len(k[0]) == len(set(k[0]))}
+    controls = [_load(p, args.control_head, args.control_total)
+                for p in args.control_pkls]
+
+    include_multidrop = not args.omit_multidrop
+    averaged_ac = average_signals(experiments=controls,
+                                  include_remainders=False,
+                                  include_multidrop=include_multidrop,
+                                  max_cycle=None)
+    ac_stds = signals_std(experiments=controls, include_remainders=False,
+                          include_multidrop=include_multidrop,
+                          max_cycle=None)
+    boc_percent = counts_to_percent(signals=boc, include_remainders=False,
+                                    include_multidrop=include_multidrop,
+                                    max_cycle=None)
+    peak_list, undefined_peaks, updated_boc_raw, updated_boc_percent = \
+        iterative_peak_finding_v3(
+            boc_raw=boc, boc_percent=boc_percent, ac_average=averaged_ac,
+            ac_std=ac_stds, num_cycles=args.num_cycles,
+            sigma_threshold=args.sigma,
+            include_multidrop=include_multidrop)
+    corrected = {k: max(boc[k] - background_count, 0)
+                 for k, background_count in updated_boc_raw.items()}
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    out_path = os.path.join(args.output_dir, args.output)
+    with open(out_path, "wb") as fh:
+        pickle.dump(corrected, fh)
+    if args.background_pkl:
+        with open(os.path.join(args.output_dir, args.background_pkl),
+                  "wb") as fh:
+            pickle.dump(updated_boc_raw, fh)
+    print(json.dumps({
+        "signals_in": len(boc), "signals_out": len(corrected),
+        "counts_in": int(sum(boc.values())),
+        "counts_out": int(sum(corrected.values())),
+        "undefined_peaks": len(undefined_peaks), "output": out_path}))
+    return 0
+
+
+def _cmd_remainder(args):
+    """Remainder-based photometry correction of a track CSV (the
+    remainder_correction app's methods 1-4), writing
+    <csv>_adjusted.csv."""
+    import csv as csv_module
+
+    from .inference.photometries import (read_track_photometries_csv,
+                                         remainder_correct,
+                                         write_photometries_dict_to_csv)
+
+    csv_path = os.path.abspath(args.tracks_csv)
+    photometries, row_photometries = read_track_photometries_csv(
+        csv_path, head_truncate=0, tail_truncate=0, downstep_filtered=False)
+    if not row_photometries:
+        raise SystemExit("no traces in " + csv_path)
+    num_frames = len(row_photometries.popitem()[1][4])
+    adjusted, adjustments = remainder_correct(
+        photometries, num_frames, method=args.method,
+        minimum_r_per_field=args.min, use_median=args.m1_diff_median)
+    out_path = args.output or (csv_path + "_adjusted.csv")
+    # The correction methods may leave empty channel/field shells
+    # (minimum_r_per_field rejections); prune so the library writer's
+    # first-entry header probe is safe.
+    adjusted = {c: {f: d for f, d in cd.items() if d}
+                for c, cd in adjusted.items()}
+    adjusted = {c: cd for c, cd in adjusted.items() if cd}
+    if adjusted:
+        n_rows = write_photometries_dict_to_csv(adjusted, out_path)
+    else:
+        # Methods can reject every field (minimum_r_per_field); still
+        # honor the promised artifact with a header-only CSV.
+        with open(out_path, "w", newline="") as fh:
+            csv_module.writer(fh).writerow(
+                ["CHANNEL", "FIELD", "H", "W", "CATEGORY"] +
+                [f"FRAME {fr}" for fr in range(num_frames)])
+        n_rows = 0
+    if args.adjustments_pkl:
+        with open(args.adjustments_pkl, "wb") as fh:
+            pickle.dump(adjustments, fh)
+    print(json.dumps({"method": args.method, "rows": n_rows,
+                      "adjusted_fields": {c: sorted(d)
+                                          for c, d in adjustments.items()},
+                      "output": out_path}, default=str))
+    return 0
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="python -m fluorosequencingimageanalysis_torch",
@@ -534,6 +692,85 @@ def build_parser():
                          "or cpu")
     sf.set_defaults(func=_cmd_stepfit)
 
+    fc = sub.add_parser("fluor-counts",
+                        help="v8 lognormal fluor counting from a track CSV")
+    fc.add_argument("tracks_csv")
+    fc.add_argument("--auto-calibrate", action="store_true",
+                    help="derive alpha via the histogram mode-separation "
+                         "method and beta via last-drop v2, with an "
+                         "ON/OFF re-adjustment pass — the "
+                         "lognormal_fitter_v2 flow (the fit always uses "
+                         "--beta-sigma; last-drop sigma estimates are "
+                         "only reported)")
+    fc.add_argument("--beta", type=float, default=None,
+                    help="lognormal intensity scale; required without "
+                         "--auto-calibrate, pins beta with it")
+    fc.add_argument("--beta-sigma", type=float, default=0.2,
+                    help="lognormal sigma used by the fit (both passes, "
+                         "as in the reference)")
+    fc.add_argument("--alpha-adjust", type=float, default=0.0,
+                    help="(manual mode) subtract this zero level")
+    fc.add_argument("--channel", default=None,
+                    help="channel to read from the CSV (auto-calibrate "
+                         "default: ch1; manual default: all — required "
+                         "there when the CSV holds multiple channels)")
+    fc.add_argument("--truncate", type=int, default=0,
+                    help="(auto-calibrate) head-truncate cycles for the "
+                         "last-drop beta estimate")
+    fc.add_argument("--ddif", type=float, default=0.0,
+                    help="(auto-calibrate) dye-dye interaction quench "
+                         "factor")
+    fc.add_argument("--max-possible", type=int, default=5)
+    fc.add_argument("--no-multidrop", action="store_true")
+    fc.add_argument("--no-adjustment", action="store_true",
+                    help="(auto-calibrate) skip the ON/OFF re-adjustment "
+                         "pass")
+    fc.add_argument("--signals-pkl", default=None,
+                    help="dump the signals dict to this pkl")
+    fc.add_argument("--device", default="cuda",
+                    help="where the scoring runs: cuda (default), cuda:N "
+                         "or cpu")
+    fc.set_defaults(func=_cmd_fluor_counts)
+
+    bg = sub.add_parser(
+        "background-correct",
+        help="iterative background correction of a SIGNALS.pkl against "
+             "control experiments")
+    bg.add_argument("signals_pkl", help="experiment SIGNALS.pkl")
+    bg.add_argument("--control-pkls", nargs="+", required=True,
+                    help="control-experiment SIGNALS.pkl files")
+    bg.add_argument("--num-cycles", type=int, required=True)
+    bg.add_argument("--sigma", type=float, default=2.0,
+                    help="outlier sigma threshold")
+    bg.add_argument("--head", type=int, default=0,
+                    help="head-truncate the experiment by this many cycles")
+    bg.add_argument("--total", type=int, default=None,
+                    help="discard experiment signals beyond this cycle")
+    bg.add_argument("--control-head", type=int, default=0)
+    bg.add_argument("--control-total", type=int, default=None)
+    bg.add_argument("--omit-multidrop", action="store_true")
+    bg.add_argument("--output-dir", default=".")
+    bg.add_argument("--output", default="corrected_signals.pkl")
+    bg.add_argument("--background-pkl", default=None,
+                    help="also dump the per-signal background counts")
+    bg.set_defaults(func=_cmd_background)
+
+    rc = sub.add_parser(
+        "remainder-correct",
+        help="remainder-based photometry correction of a track CSV "
+             "(methods 1-4), writing <csv>_adjusted.csv")
+    rc.add_argument("tracks_csv", help="track-photometries CSV")
+    rc.add_argument("--method", type=int, default=4, choices=[1, 2, 3, 4])
+    rc.add_argument("--min", type=int, default=5,
+                    help="minimum remainders per field")
+    rc.add_argument("--m1-diff-median", action="store_true",
+                    help="method 1: deviations from each remainder's "
+                         "median instead of its mean")
+    rc.add_argument("--output", default=None,
+                    help="output CSV path (default <csv>_adjusted.csv)")
+    rc.add_argument("--adjustments-pkl", default=None,
+                    help="also pickle the per-field adjustments")
+    rc.set_defaults(func=_cmd_remainder)
     return parser
 
 

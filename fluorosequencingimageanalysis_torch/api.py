@@ -2,9 +2,10 @@
 
 Counterpart of fluorosequencingimageanalysis_tpu/api.py ``Pipeline``'s
 ``run_stack``, ``run_zstack``, ``run_experiment``, ``run_timetrace``,
-``run_timetraces``, ``run_files``, ``stepfit`` and ``chi_squared_stepfit``,
-on one device, with its content-hash artifact store (utils/checkpoint.py).
-The JAX Pipeline's mesh padding has no counterpart.
+``run_timetraces``, ``run_files``, ``stepfit``, ``chi_squared_stepfit``,
+``fluor_counts`` and ``fluor_counts_calibrated``, on one device, with its
+content-hash artifact store (utils/checkpoint.py). The JAX Pipeline's mesh
+padding has no counterpart.
 
     from fluorosequencingimageanalysis_torch.api import Pipeline
     out = Pipeline(device="cuda").run_stack(stack)       # [F, C, H, W]
@@ -12,6 +13,8 @@ The JAX Pipeline's mesh padding has no counterpart.
     res = Pipeline(device="cuda").run_experiment(stack, csv_path="t.csv")
     tt = Pipeline(device="cuda").run_timetrace(movie, csv_path="tt.csv")
     steps = Pipeline(device="cuda").stepfit(photometries)    # (N, T)
+    signals, total, none_count, fit_info = Pipeline(
+        device="cuda").fluor_counts("t.csv", beta=30000.0, beta_sigma=0.2)
 """
 
 from __future__ import annotations
@@ -1131,3 +1134,150 @@ class Pipeline:
                 num_steps=num_steps, min_step_length=min_step_length,
                 min_step_magnitude=min_step_magnitude,
                 ignore_counterfits=ignore_counterfits)
+
+    # -- inference -----------------------------------------------------------
+
+    def fluor_counts(self, tracks, beta, beta_sigma, quench_factors=None,
+                     alpha_adjust=0.0, **kwargs):
+        """v8 lognormal fluor counting.
+
+        ``tracks`` is a track-CSV path (dict-free native ingestion) or a
+        photometries dict. Returns (signals, total, none_count, fit_info).
+        The scoring runs on the pipeline's device (a ``device=`` keyword
+        names another): the hand-written kernel on a CUDA device.
+        """
+        ln = self.config.lognormal
+        if quench_factors is None:
+            # config.lognormal.quench_factors when set, else no quenching
+            # (the reference's quench_factor=0 default).
+            quench_factors = (tuple(ln.quench_factors) or
+                              (0.0,) * (ln.max_possible + 2))
+        # device= in kwargs scores elsewhere than the pipeline's device.
+        device = kwargs.pop("device", self.device)
+        with self._stage("api/fluor_counts"):
+            if isinstance(tracks, str):
+                from .inference.lognormal import lognormal_fit_v8_from_csv
+                return lognormal_fit_v8_from_csv(
+                    tracks, beta, beta_sigma,
+                    max_possible=ln.max_possible,
+                    allow_upsteps=ln.allow_upsteps,
+                    allow_multidrop=ln.allow_multidrop,
+                    max_deviation=(ln.max_deviation
+                                   if ln.max_deviation is not None else 3),
+                    quench_factors=quench_factors,
+                    alpha_adjust=alpha_adjust, device=device, **kwargs)
+            from .inference.lognormal import photometries_lognormal_fit_v8
+            if kwargs:
+                # The remaining kwargs are CSV-reader options
+                # (downstep_filtered, head/tail_truncate); silently
+                # dropping them against a dict would fit different data
+                # than the caller asked for.
+                raise TypeError(
+                    "fluor_counts with a photometries dict accepts no "
+                    "CSV-reader options: " + ", ".join(sorted(kwargs)))
+            if alpha_adjust:
+                from .inference.photometries import (
+                    alpha_adjust_photometries)
+                tracks = alpha_adjust_photometries(tracks, alpha_adjust)
+            return photometries_lognormal_fit_v8(
+                tracks, beta, beta_sigma, max_possible=ln.max_possible,
+                allow_upsteps=ln.allow_upsteps,
+                allow_multidrop=ln.allow_multidrop,
+                max_deviation=(ln.max_deviation
+                               if ln.max_deviation is not None else 3),
+                quench_factors=quench_factors, device=device)
+
+    def fluor_counts_calibrated(self, tracks, channel="ch1", beta=None,
+                                beta_sigma=0.2, truncate=0, ddif=0.0,
+                                max_possible=5, allow_multidrop=True,
+                                adjustment=True):
+        """Auto-calibrated v8 fluor counting: the lognormal_fitter_v2
+        flow (lognormal_fitter_v2.py:119-212 in the reference) on the
+        batched scorer, on the pipeline's device.
+
+        alpha comes from the first-two-mode histogram separation
+        (_get_m0Dm1[7]); beta from the last-drop method v2 on the
+        truncated alpha-adjusted photometries; an optional ON/OFF
+        re-adjustment pass (grab_ON_OFFS -> ON_OFF_adjust_photometries)
+        recalibrates before the final fit. Passing ``beta`` pins it (the
+        reference's --beta override). Like the reference, BOTH fits use
+        the caller's ``beta_sigma`` (default 0.2) — the last-drop sigma
+        estimates are derived but never fed into the fit
+        (lognormal_fitter_v2.py:199-212); they are reported in the
+        calibration dict as beta_sigma_estimate / original_beta_sigma.
+
+        Returns (signals, total_count, none_count, all_fit_info,
+        calibration) where calibration = {alpha, beta, beta_sigma (the
+        value the fits used), beta_sigma_estimate, original_beta,
+        original_beta_sigma}.
+        """
+        from collections import defaultdict
+
+        from .inference.calibration import _get_m0Dm1, last_drop_method_v2
+        from .inference.lognormal import photometries_lognormal_fit_v8
+        from .inference.photometries import (read_track_photometries_csv,
+                                             unwind_photometries)
+        from . import notebook as jd
+
+        with self._stage("api/fluor_counts_calibrated"):
+            if isinstance(tracks, str):
+                photometries, _ = read_track_photometries_csv(
+                    tracks, head_truncate=0, tail_truncate=0,
+                    downstep_filtered=True, channels=[channel])
+            else:
+                photometries = tracks
+            raw = tuple(i for (_, _, _, _, _, ints, _)
+                        in unwind_photometries(photometries)
+                        for i in ints)
+            alpha = _get_m0Dm1(raw_photometries=raw,
+                               optimal_bin_number=None)[7]
+            alpha_adjusted = defaultdict(dict)
+            truncated = defaultdict(dict)
+            for (ch, field, h, w, category, ints,
+                 row) in unwind_photometries(photometries):
+                adj = tuple(i - alpha for i in ints)
+                (alpha_adjusted[ch].setdefault(field, {})
+                 .setdefault((h, w), (category, adj, row)))
+                (truncated[ch].setdefault(field, {})
+                 .setdefault((h, w), (category[truncate:], ints[truncate:],
+                                      row)))
+            original_beta, original_bs = last_drop_method_v2(
+                photometries=dict(truncated))
+            if beta is not None:
+                original_beta = beta
+            quench = tuple([0.0] + [ddif] * (max_possible + 1))
+            first = photometries_lognormal_fit_v8(
+                dict(alpha_adjusted), original_beta, beta_sigma,
+                max_possible=max_possible, allow_upsteps=False,
+                allow_multidrop=allow_multidrop, max_deviation=3,
+                quench_factors=quench, device=self.device)
+            on_offs = jd.grab_ON_OFFS(first[3], alpha_adjust=0)
+            if adjustment:
+                # Unconditional like the reference
+                # (lognormal_fitter_v2.py:186-191): with empty ON_OFFS
+                # the adjuster's per-cycle dict never matches, so the
+                # RAW intensities feed the final beta estimate + fit.
+                adj_photometries = jd.ON_OFF_adjust_photometries(
+                    photometries=photometries, ON_OFFS=on_offs, alpha=alpha)
+            else:
+                adj_photometries = dict(alpha_adjusted)
+            adj_beta, adj_bs = last_drop_method_v2(
+                photometries=adj_photometries)
+            if beta is not None:
+                adj_beta = beta
+            signals, total, none_count, fit_info = \
+                photometries_lognormal_fit_v8(
+                    adj_photometries, adj_beta, beta_sigma,
+                    max_possible=max_possible, allow_upsteps=False,
+                    allow_multidrop=allow_multidrop, max_deviation=3,
+                    quench_factors=quench, device=self.device)
+        # Faithful to lognormal_fitter_v2.py:199-212: BOTH fits use the
+        # caller's beta_sigma; last_drop_method_v2's sigma estimates are
+        # derived but never fed back. Report the estimate separately so
+        # the record is honest about which value the fit actually used.
+        calibration = {"alpha": float(alpha), "beta": float(adj_beta),
+                       "beta_sigma": float(beta_sigma),
+                       "beta_sigma_estimate": float(adj_bs),
+                       "original_beta": float(original_beta),
+                       "original_beta_sigma": float(original_bs)}
+        return signals, total, none_count, fit_info, calibration

@@ -1,6 +1,6 @@
 """Synthetic experiment stacks with planted Gaussian spots.
 
-Six recipes of the repo's benchmark (bench.py):
+Seven recipes of the repo's benchmark (bench.py):
 
 - ``make_stack`` (bench.py::make_stack, the headline step): background
   N(400, 8), ``spots_per_field`` spots per field at integer pixel centers
@@ -22,7 +22,10 @@ Six recipes of the repo's benchmark (bench.py):
   steps of 2500 under N(0, 300);
 - ``make_movie`` (bench.py::make_movie, the timetrace movie): spots that
   bleach to the background in 1-3 steps of ``beta`` while wandering by a
-  subpixel random walk, on N(400, 6), emitted as raw uint16 frames.
+  subpixel random walk, on N(400, 6), emitted as raw uint16 frames;
+- ``make_v8_workload`` (bench.py::make_v8_workload, config 5, fluor
+  counting): lognormal intensity ladders that lose a fluor with
+  probability 0.25 per cycle.
 
 Each returns its bench.py arrays, drawn with the same random calls in the
 same order, and on request the planted truth beside them.
@@ -320,3 +323,24 @@ def experiment_recovery(rows, step_out, positions, presence, drift,
             "detected_every_cycle": detected,
             "recovered_of_detected": recovered_det / max(detected, 1),
             "image_recall": pairs_hit / max(pairs, 1)}
+
+
+def make_v8_workload(T, F=12, K=5, beta=30000.0, beta_sigma=0.2, seed=0):
+    """T synthetic traces at the reference's cost-warning shape
+    (n_cycles=12, max_fluors=5 -> C(17, 12) = 6188 sequences/trace,
+    MCsimlib.py:5426-5466). Returns (intensities (T, F) float64,
+    categories (T, F) bool, log_fluor_means (K,))."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(1, K + 1, T)
+    counts = np.zeros((T, F), np.int64)
+    counts[:, 0] = start
+    for c in range(1, F):
+        drop = rng.random(T) < 0.25
+        counts[:, c] = np.maximum(counts[:, c - 1] - drop, 0)
+    z = rng.normal(0, 1, (T, F))
+    intensities = np.where(
+        counts > 0, np.exp(np.log(beta * np.maximum(counts, 1)) +
+                           beta_sigma * z), 0.0)
+    categories = counts > 0
+    lfm = np.log(beta * np.arange(1, K + 1))
+    return intensities, categories, lfm

@@ -10,6 +10,9 @@ CLI's JSON summary (same keys) and write CSVs whose rows are the API's.
 ``stepfit`` (from an .npy matrix and from a track CSV, both methods) and
 ``timetrace`` (on TIFF frames) print the JAX CLI's summary and write its
 CSV: text cells equal, numbers within rel 1e-5 / abs 1e-2.
+``fluor-counts`` (manual and ``--auto-calibrate``), ``background-correct``
+and ``remainder-correct`` print the JAX CLI's summary and write its files:
+signals pickles and calibrations equal, corrected CSVs byte-equal.
 """
 
 import csv
@@ -24,6 +27,8 @@ import pytest
 import torch
 
 from fluorosequencingimageanalysis_tpu import batch as jax_batch
+from fluorosequencingimageanalysis_tpu.__main__ import (
+    build_parser as jax_build_parser)
 from fluorosequencingimageanalysis_tpu.__main__ import main as jax_main
 
 from fluorosequencingimageanalysis_torch import batch as port_batch
@@ -371,12 +376,11 @@ def test_parser_has_the_ported_subcommands_and_the_cards_default(tmp_path):
     parser = build_parser()
     for argv in (["detect", "a.tif"], ["zstack", "a.npy"],
                  ["run-experiment", "--peptide-files", "a.tif"],
-                 ["timetrace", "--frames", "a.tif"], ["stepfit", "a.csv"]):
+                 ["timetrace", "--frames", "a.tif"], ["stepfit", "a.csv"],
+                 ["fluor-counts", "a.csv"]):
         assert parser.parse_args(argv).device == "cuda"
-    for name in ("fluor-counts", "background-correct", "remainder-correct",
-                 "simulate"):
-        with pytest.raises(SystemExit):
-            parser.parse_args([name])
+    with pytest.raises(SystemExit):
+        parser.parse_args(["simulate", "ACK", "C"])
     args = parser.parse_args(["stepfit", "--npy", "p.npy"])
     assert (args.method, args.mirror_start, args.chung_kennedy,
             args.p_threshold, args.num_steps, args.csv) == (
@@ -393,3 +397,200 @@ def test_parser_has_the_ported_subcommands_and_the_cards_default(tmp_path):
         np.save(npy, np.zeros((1, 16, 16), np.uint16))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["zstack", npy])
+
+
+def _pickle_at(path):
+    with open(path, "rb") as fh:
+        return pickle.load(fh)
+
+
+def _ladder_csv(path, n=60, n_frames=5, channels=("ch1",), seed=0):
+    rng = np.random.default_rng(seed)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["CHANNEL", "FIELD", "H", "W", "CATEGORY"] +
+                   [f"FRAME {i}" for i in range(n_frames)])
+        for t in range(n):
+            counts = [int(rng.integers(1, 3))]
+            for _ in range(n_frames - 1):
+                counts.append(max(counts[-1] - int(rng.random() < 0.4), 0))
+            ints = [int(rng.lognormal(np.log(30000.0 * v), 0.2)) if v
+                    else int(abs(rng.normal(300, 50))) for v in counts]
+            w.writerow([channels[t % len(channels)], t % 2, 10 + t, 20,
+                        str(tuple(v > 0 for v in counts))] + ints)
+
+
+def test_fluor_counts_cli_on_a_run_experiment_track_csv(tmp_path, capsys):
+    """run-experiment's track CSV chains into fluor-counts, as in the JAX
+    package's CLI test; both CLIs count the same signals."""
+    stack = np.clip(synth.make_experiment_stack(
+        1, 4, 96, 96, spots_per_field=10), 0, 65535).astype(np.uint16)
+    tracks = str(tmp_path / "tracks.csv")
+    res = Pipeline(device="cpu").run_experiment(stack, max_candidates=128,
+                                                csv_path=tracks)
+    argv = ["fluor-counts", tracks, "--beta", "3000", "--beta-sigma", "0.3"]
+    assert main([*argv, "--signals-pkl", str(tmp_path / "port.pkl"),
+                 "--device", "cpu"]) == 0
+    summary = _json_line(capsys)
+    assert jax_main([*argv, "--signals-pkl", str(tmp_path / "jax.pkl")]) == 0
+    ref = _json_line(capsys)
+    assert sorted(summary) == sorted(ref) == [
+        "calibration", "distinct_signals", "none", "signals_pkl", "traces"]
+    assert summary["traces"] == ref["traces"] == len(res["rows"]) >= 8
+    assert (summary["none"], summary["distinct_signals"],
+            summary["calibration"]) == (ref["none"], ref["distinct_signals"],
+                                        None)
+    assert _pickle_at(tmp_path / "port.pkl") == _pickle_at(tmp_path /
+                                                           "jax.pkl")
+    with pytest.raises(SystemExit, match="--beta is required"):
+        main(["fluor-counts", tracks, "--device", "cpu"])
+
+
+def test_fluor_counts_cli_flags_match_the_jax_cli(tmp_path, capsys):
+    tracks = str(tmp_path / "tracks.csv")
+    _ladder_csv(tracks, channels=("ch1", "ch2"))
+    with pytest.raises(NotImplementedError, match="channels"):
+        main(["fluor-counts", tracks, "--beta", "30000", "--device", "cpu"])
+    for extra in (["--channel", "ch1"],
+                  ["--channel", "ch2", "--alpha-adjust", "150",
+                   "--max-possible", "3", "--no-multidrop"]):
+        argv = ["fluor-counts", tracks, "--beta", "30000", *extra]
+        assert main([*argv, "--signals-pkl", str(tmp_path / "port.pkl"),
+                     "--device", "cpu"]) == 0
+        summary = _json_line(capsys)
+        assert jax_main([*argv, "--signals-pkl",
+                         str(tmp_path / "jax.pkl")]) == 0
+        ref = _json_line(capsys)
+        assert summary["traces"] == ref["traces"] == 30
+        assert (summary["none"], summary["distinct_signals"]) == (
+            ref["none"], ref["distinct_signals"])
+        signals = _pickle_at(tmp_path / "port.pkl")
+        assert signals == _pickle_at(tmp_path / "jax.pkl")
+        assert sum(signals.values()) + summary["none"] == 30
+
+
+def test_fluor_counts_cli_auto_calibrate_matches_the_jax_cli(tmp_path,
+                                                             capsys):
+    from fluorosequencingimageanalysis_torch.inference.photometries import (
+        write_photometries_dict_to_csv)
+    rng = np.random.default_rng(5)
+    beta, n_cycles = 30000.0, 6
+    photometries = {"ch1": {0: {}}}
+    for t in range(160):
+        n0 = int(rng.integers(1, 3))
+        drop = int(rng.integers(1, n_cycles))
+        counts = [n0] * drop + [n0 - 1] * (n_cycles - drop)
+        photometries["ch1"][0][(t, t)] = (
+            tuple(n > 0 for n in counts),
+            tuple(float(n * beta * np.exp(rng.normal(0, 0.18))) if n else
+                  float(rng.normal(0, 120.0)) for n in counts), t)
+    tracks = str(tmp_path / "tracks.csv")
+    write_photometries_dict_to_csv(photometries, tracks)
+    for extra in ([], ["--beta", "29000", "--no-adjustment", "--truncate",
+                       "1", "--ddif", "0.05"]):
+        argv = ["fluor-counts", tracks, "--auto-calibrate", *extra]
+        assert main([*argv, "--signals-pkl", str(tmp_path / "port.pkl"),
+                     "--device", "cpu"]) == 0
+        summary = _json_line(capsys)
+        assert jax_main([*argv, "--signals-pkl",
+                         str(tmp_path / "jax.pkl")]) == 0
+        ref = _json_line(capsys)
+        assert summary["traces"] == ref["traces"] == 160
+        assert summary["calibration"] == ref["calibration"]
+        assert 0.5 * beta < float(summary["calibration"]["beta"]) < 2 * beta
+        signals = _pickle_at(tmp_path / "port.pkl")
+        assert signals == _pickle_at(tmp_path / "jax.pkl")
+        assert sum(signals.values()) > 100
+
+
+def test_background_correct_cli_matches_the_jax_cli(tmp_path, capsys):
+    keys = [((("A", i),), True, 1) for i in range(1, 7)]
+    rng = np.random.default_rng(3)
+    controls = []
+    for i in range(3):
+        controls.append(str(tmp_path / f"ac_{i}.pkl"))
+        with open(controls[-1], "wb") as f:
+            pickle.dump({k: 100 + int(rng.integers(-10, 10)) for k in keys},
+                        f)
+    boc = {k: 100 for k in keys}
+    boc[((("A", 3),), True, 1)] = 1000
+    boc[((("A", 2), ("A", 2)), True, 2)] = 40   # a multidrop signal
+    boc[((("A", 1),), False, 2)] = 500          # not a zero: dropped
+    boc_path = str(tmp_path / "boc.pkl")
+    with open(boc_path, "wb") as f:
+        pickle.dump(boc, f)
+    for extra in ([], ["--omit-multidrop", "--sigma", "1.5", "--total", "6",
+                       "--control-total", "6"]):
+        argv = ["background-correct", boc_path, "--control-pkls", *controls,
+                "--num-cycles", "6", "--background-pkl", "background.pkl",
+                *extra]
+        assert main([*argv, "--output-dir", str(tmp_path / "port")]) == 0
+        summary = _json_line(capsys)
+        assert jax_main([*argv, "--output-dir", str(tmp_path / "jax")]) == 0
+        ref = _json_line(capsys)
+        summary.pop("output"), ref.pop("output")
+        assert summary == ref and summary["counts_out"] < summary["counts_in"]
+        for name in ("corrected_signals.pkl", "background.pkl"):
+            assert _pickle_at(tmp_path / "port" / name) == \
+                _pickle_at(tmp_path / "jax" / name)
+    assert not hasattr(build_parser().parse_args(argv), "device")
+
+
+def test_remainder_correct_cli_matches_the_jax_cli(tmp_path, capsys):
+    tracks = str(tmp_path / "tracks.csv")
+    with open(tracks, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["CHANNEL", "FIELD", "H", "W", "CATEGORY",
+                    "FRAME 0", "FRAME 1", "FRAME 2"])
+        for t in range(6):
+            w.writerow(["ch1", 0, t, 0, "(True, True, True)",
+                        1000 + 3 * t, 1100 - t, 1000 + t * t])
+        w.writerow(["ch1", 0, 99, 0, "(True, True, False)", 900, 950, 10])
+        w.writerow(["ch1", 1, 5, 5, "(True, True, True)", 800, 850, 700])
+    for method, extra in ((4, []), (1, ["--m1-diff-median"]), (1, []),
+                          (2, ["--min", "3"]), (3, ["--min", "3"]),
+                          (4, ["--min", "50"])):
+        argv = ["remainder-correct", tracks, "--method", str(method), *extra]
+        outs = {}
+        for name, cli in (("port", main), ("jax", jax_main)):
+            out = str(tmp_path / f"{name}_{method}.csv")
+            assert cli([*argv, "--output", out, "--adjustments-pkl",
+                        str(tmp_path / f"{name}.pkl")]) == 0
+            outs[name] = _json_line(capsys)
+            assert outs[name].pop("output") == out
+            with open(out) as f:
+                outs[name + "_text"] = f.read()
+        assert outs["port"] == outs["jax"]
+        assert outs["port_text"] == outs["jax_text"]
+        assert _pickle_at(tmp_path / "port.pkl") == \
+            _pickle_at(tmp_path / "jax.pkl")
+        want_rows = 0 if "50" in extra else 7
+        assert outs["port"]["rows"] == want_rows
+        assert len(outs["port_text"].splitlines()) == 1 + want_rows
+    assert main(["remainder-correct", tracks]) == 0  # default output path
+    assert _json_line(capsys)["output"] == tracks + "_adjusted.csv"
+    empty = str(tmp_path / "empty.csv")
+    with open(empty, "w") as f:
+        f.write("CHANNEL,FIELD,H,W,CATEGORY,FRAME 0\n")
+    with pytest.raises(SystemExit, match="no traces"):
+        main(["remainder-correct", empty])
+
+
+@pytest.mark.parametrize("name", ["fluor-counts", "background-correct",
+                                  "remainder-correct"])
+def test_inference_subcommands_have_the_jax_clis_flags(name):
+    def flags(parser):
+        sub = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction))
+        return {a.dest: (tuple(a.option_strings), a.default, a.type, a.nargs,
+                         a.choices and tuple(a.choices), a.required)
+                for a in sub.choices[name]._actions}
+
+    import argparse
+    got, want = flags(build_parser()), flags(jax_build_parser())
+    device = got.pop("device", None)
+    assert got == want
+    if name == "fluor-counts":
+        assert device == (("--device",), "cuda", None, None, None, False)
+    else:
+        assert device is None  # host code

@@ -389,3 +389,87 @@ def test_kernels_match_twins_at_the_timetrace_shapes(dev):
     assert int(m.sum()) > 500
     assert float((got[1] - ref[1]).abs()[m].max()) <= 1e-3
     assert float((got[4] - ref[4]).abs()[m].max()) <= 1e-4
+
+
+def _v8_inputs(dev, T, F, K, allow_multidrop, allow_upsteps, seed):
+    from fluorosequencingimageanalysis_torch.ops import lognormal as ln
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_v8_workload)
+    ints, cats, lfm = make_v8_workload(T, F, K, seed=seed)
+    cats[:40, 0] = False  # traces with no valid sequence
+    cats[:40, -1] = True
+    ints[40:80] = ints[40:80, :1]  # equal frames: exact ties
+    ints[80:90, 0] = 0.0
+    log_int = np.where(ints > 0, np.log(np.maximum(ints, 1e-300)),
+                       -10000.0).astype(np.float32)
+    contrib, invalid = ln._contrib_invalid(
+        torch.from_numpy(log_int).to(dev), torch.from_numpy(cats).to(dev),
+        torch.from_numpy(np.asarray(lfm[:K], np.float32)).to(dev), 0.2, 3.0)
+    return contrib, invalid, ln.device_table(F, K, allow_upsteps,
+                                             allow_multidrop, dev)
+
+
+@pytest.mark.parametrize("T,F,K,allow_multidrop,allow_upsteps", [
+    (20_001, 12, 5, True, False), (5_000, 6, 3, False, False),
+    (3_000, 4, 3, True, True), (1_000, 1, 5, True, False)])
+def test_kernel_c_matches_twin(dev, T, F, K, allow_multidrop, allow_upsteps):
+    """Only float32 adds in frame order touch a score on both sides: the
+    winner, the found flag and the raw score are equal bit for bit."""
+    from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
+        v8_score_fused, v8_score_plain)
+    contrib, invalid, (tab_t, seq_ok) = _v8_inputs(
+        dev, T, F, K, allow_multidrop, allow_upsteps, seed=F)
+    before = v8_score_fused.launches
+    got = v8_score_fused(contrib, invalid, tab_t, seq_ok)
+    torch.cuda.synchronize()
+    assert v8_score_fused.launches == before + 1
+    assert 0 < float(got[1].float().mean()) < 1
+    for lo in range(0, T, 4096):
+        want = v8_score_plain(contrib[lo:lo + 4096], invalid[lo:lo + 4096],
+                              tab_t, seq_ok)
+        assert torch.equal(got[0][lo:lo + 4096], want[0])
+        assert torch.equal(got[1][lo:lo + 4096], want[1])
+        assert torch.equal(got[2][lo:lo + 4096].view(torch.int32),
+                           want[2].view(torch.int32))
+    empty = v8_score_fused(contrib[:0], invalid[:0], tab_t, seq_ok)
+    assert [e.shape[0] for e in empty] == [0, 0, 0]
+
+
+def test_kernel_c_rejects_what_it_does_not_take(dev):
+    from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
+        v8_score_fused)
+    contrib, invalid, (tab_t, seq_ok) = _v8_inputs(dev, 64, 4, 3, True,
+                                                   False, seed=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        v8_score_fused(contrib.transpose(0, 1).contiguous().transpose(0, 1),
+                       invalid, tab_t, seq_ok)
+    with pytest.raises(ValueError, match="share a device"):
+        v8_score_fused(contrib, invalid, tab_t.cpu(), seq_ok)
+    with pytest.raises(ValueError, match="shared memory"):
+        v8_score_fused(contrib.new_zeros((2, 4, 400)),
+                       invalid.new_zeros((2, 4, 400)), tab_t, seq_ok)
+
+
+def test_fluor_counts_on_the_card_matches_cpu(dev, tmp_path):
+    from fluorosequencingimageanalysis_torch.inference.photometries import (
+        write_photometries_dict_to_csv)
+    from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
+        v8_score_fused)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_v8_workload)
+    ints, cats, _ = make_v8_workload(3000, F=8, K=3, seed=2)
+    tracks = {"ch1": {0: {(i, i): (tuple(c), tuple(int(v) for v in x), i)
+                          for i, (c, x) in enumerate(zip(cats.tolist(),
+                                                         ints.tolist()))}}}
+    path = str(tmp_path / "tracks.csv")
+    write_photometries_dict_to_csv(tracks, path)
+    card, cpu = Pipeline(device="cuda"), Pipeline(device="cpu")
+    before = v8_score_fused.launches
+    for source in (path, tracks):
+        got = card.fluor_counts(source, 30000.0, 0.2)
+        assert got == cpu.fluor_counts(source, 30000.0, 0.2)
+        assert got[1] == 3000 and got[2] < 150
+    assert v8_score_fused.launches == before + 2
+    got = card.fluor_counts_calibrated(path, max_possible=3)
+    assert got == cpu.fluor_counts_calibrated(path, max_possible=3)
+    assert v8_score_fused.launches == before + 4

@@ -49,7 +49,15 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.stepfitting",
     "fluorosequencingimageanalysis_torch.ops.special",
     "fluorosequencingimageanalysis_torch.ops.stepfit_batch",
+    "fluorosequencingimageanalysis_torch.inference",
     "fluorosequencingimageanalysis_torch.inference.photometries",
+    "fluorosequencingimageanalysis_torch.inference.lognormal",
+    "fluorosequencingimageanalysis_torch.inference.calibration",
+    "fluorosequencingimageanalysis_torch.inference.background",
+    "fluorosequencingimageanalysis_torch.notebook",
+    "fluorosequencingimageanalysis_torch.native.trackcsv",
+    "fluorosequencingimageanalysis_torch.ops.lognormal",
+    "fluorosequencingimageanalysis_torch.ops.fused_lognormal",
     "fluorosequencingimageanalysis_torch.pipeline.experiment",
     "fluorosequencingimageanalysis_torch.pipeline.fast_experiment",
     "fluorosequencingimageanalysis_torch.pipeline.fast_timetrace",
@@ -103,6 +111,24 @@ def test_port_imports_and_runs_with_jax_blocked():
         "traces = make_step_traces(6, 40)\n"
         "assert len(pipe.stepfit(traces)) == 6\n"
         "assert len(pipe.chi_squared_stepfit(traces, num_steps=4)) == 6\n"
+        "from fluorosequencingimageanalysis_torch.utils.synth import (\n"
+        "    make_v8_workload)\n"
+        "ints, cats, _ = make_v8_workload(40, F=4, K=2)\n"
+        "tracks = {'ch1': {0: {(i, i): (tuple(c), tuple(x), i) for i, (c, x)\n"
+        "    in enumerate(zip(cats.tolist(), ints.tolist()))}}}\n"
+        "fit = pipe.fluor_counts(tracks, 30000.0, 0.2)\n"
+        "assert fit[1] == 40 and sum(fit[0].values()) + fit[2] == 40\n"
+        "cal = pipe.fluor_counts_calibrated(tracks, max_possible=2)\n"
+        "assert cal[1] == 40 and cal[4]['beta'] > 0\n"
+        "import pickle\n"
+        "from fluorosequencingimageanalysis_torch.__main__ import main\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    for i in range(3):\n"
+        "        with open(f'{tmp}/s{i}.pkl', 'wb') as fh:\n"
+        "            pickle.dump(fit[0], fh)\n"
+        "    assert main(['background-correct', f'{tmp}/s0.pkl',\n"
+        "                 '--control-pkls', f'{tmp}/s1.pkl', f'{tmp}/s2.pkl',\n"
+        "                 '--num-cycles', '4', '--output-dir', tmp]) == 0\n"
         "bad = sorted(m for m in sys.modules if m.startswith(\n"
         "    ('jax', 'fluorosequencingimageanalysis_tpu'))\n"
         "    and sys.modules[m] is not None)\n"
@@ -135,7 +161,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                     assert not name.split(".")[0] in (
                         "jax", "jaxlib", "fluorosequencingimageanalysis_tpu"
                     ), (f, name)
-    assert seen >= 40
+    assert seen >= 48
     for name in _imported_names(os.path.join(REPO, "chip_smoke.py")):
         assert name.split(".")[0] not in (
             "jax", "fluorosequencingimageanalysis_tpu"), name
@@ -433,6 +459,47 @@ def test_copied_step_fit_modules_are_the_jax_packages(rel, differs):
         REPO, "fluorosequencingimageanalysis_tpu", rel))
     assert sorted(got) == sorted(want) and len(got) >= 4
     assert [n for n in got if got[n] != want[n]] == differs
+
+
+@pytest.mark.parametrize("rel,differs", [
+    ("inference/photometries.py", ["read_track_photometries_csv"]),
+    ("inference/lognormal.py", ["photometries_lognormal_fit_v8",
+                                "lognormal_fit_v8_from_csv"]),
+    ("inference/calibration.py", []),
+    ("inference/background.py", []),
+    ("notebook.py", [])])
+def test_copied_inference_modules_are_the_jax_packages(rel, differs):
+    """The host half of fluor counting is copied: every function is the
+    JAX package's statement for statement, apart from the CSV reader (a
+    native parser that fails to build raises) and the two fitters whose
+    ``mesh`` argument became ``device``."""
+    got = _definitions(os.path.join(PORT_DIR, rel))
+    want = _definitions(os.path.join(
+        REPO, "fluorosequencingimageanalysis_tpu", rel))
+    assert sorted(got) == sorted(want) and len(got) >= 6
+    assert [n for n in got if got[n] != want[n]] == differs
+    if rel == "inference/lognormal.py":
+        with open(os.path.join(PORT_DIR, rel)) as f:
+            text = f.read()
+        for n in differs:  # and those two differ in nothing else
+            assert got[n].replace("device", "mesh").replace(
+                "Constant(value='cuda')", "Constant(value=None)") == want[n]
+        assert "mesh" not in text.split('"""', 2)[2]
+
+
+def test_scorer_host_functions_and_lazy_imports():
+    """``sequence_table`` and ``seq_to_signal`` are the JAX package's code;
+    scipy's and sklearn's optional pieces stay imported where used."""
+    got = _definitions(os.path.join(PORT_DIR, "ops", "lognormal.py"))
+    want = _definitions(os.path.join(
+        REPO, "fluorosequencingimageanalysis_tpu", "ops", "lognormal.py"))
+    for n in ("sequence_table", "seq_to_signal"):
+        assert got[n] == want[n], n
+    tree = ast.parse(open(os.path.join(PORT_DIR, "notebook.py")).read())
+    top = [n.module for n in tree.body if isinstance(n, ast.ImportFrom)
+           and n.level == 0]
+    assert not [m for m in top if m and m.split(".")[0] in ("scipy",
+                                                            "sklearn")]
 
 
 def test_timetrace_experiment_methods_are_the_jax_packages():
