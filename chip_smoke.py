@@ -9,7 +9,8 @@ Builds the hand-written kernels from csrc/ (nvcc, sm_90a, one process per
 source, all at once) and reads ptxas's registers and spills for each,
 checks each against its plain PyTorch twin on the card (kernel A bit for
 bit, kernel B's parameters bit for bit, kernel C's winners, found flags
-and scores bit for bit), times each beside its bound
+and scores bit for bit, kernel D's best samples and norms bit for bit),
+times each beside its bound
 (bytes over the memory rate or operations over the float32 rate), drives
 the experiment step through ``Pipeline(device="cuda").run_stack`` on the
 headline stack (8 fields x 4 cycles of 512x512, ~200 planted spots per
@@ -53,8 +54,19 @@ against the per-trace float64 host oracle, the card against the CPU,
 track CSV through ``fluor_counts``, and the ``fluor-counts`` (manual and
 ``--auto-calibrate``), ``background-correct`` and ``remainder-correct``
 subcommands each in a process of its own.
+Then simulation and the Monte-Carlo detector: config 5's simulation half
+(100,000 molecules of the two-colour 18-mer, 12 count cycles) through the
+batched simulator (molecules/s, device time and operations, peak memory,
+the count histograms against the host event loop, the card against the
+CPU on identical draws), its simulate -> fit chain through kernel C
+(molecules/s, chained against two-step), the native signal sampler into a
+trie, frame 0 of config 2 through ``find_peptides(fit_type=
+"monte_carlo")`` at 8,192 candidates and 1,000 samples (kernels A and D;
+D against its twin bit for bit, beside its bound; the card against the CPU
+on identical draws), and the ``simulate`` subcommand in a process of its
+own.
 ``--phases`` names the groups to run, of headline, experiment, zstack,
-timetrace and fluor (default: all, in that order); the kernel summary
+timetrace, fluor and sim (default: all, in that order); the kernel summary
 then lists the kernels those groups drove.
 ``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
@@ -69,6 +81,7 @@ import argparse
 import collections
 import csv
 import json
+import math
 import os
 import platform
 import statistics
@@ -84,10 +97,10 @@ F, C, HW = 8, 4, 512
 MAX_CANDIDATES, NUM_ITERS, UPSAMPLE = 2048, 40, 20
 B_CENTER, B_R2, B_RMSE_REL, B_MODEL = 1e-3, 1e-4, 1e-4, 1e-3
 SWEEP = [(48, 100), (33, 257), (70, 130), (96, 384)]
-KERNELS = ("candidate_map", "fit_quality", "v8_score")
-HOST_CORES = ("tracklink", "stepchain", "chisqfit", "trackcsv")
+KERNELS = ("candidate_map", "fit_quality", "v8_score", "mc_fit")
+HOST_CORES = ("tracklink", "stepchain", "chisqfit", "trackcsv", "randsiggen")
 # Groups of phases, in the order they run; --phases names a subset.
-PHASES = ("headline", "experiment", "zstack", "timetrace", "fluor")
+PHASES = ("headline", "experiment", "zstack", "timetrace", "fluor", "sim")
 # Config 4 (bench.py's experiment workload): fields, cycles, candidate and
 # spot buckets, timed runs after one warm-up.
 EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
@@ -130,6 +143,31 @@ FC_ROWS, FC_REPS, FC_CONTROL_ROWS = 20_000, 3, 5_000
 # Traces per chunk of the plain twin and of the matmul form on the card:
 # both build (chunk, 6188) float32 arrays.
 V8_TWIN_CHUNK, V8_MATMUL_CHUNK = 4096, 8192
+# Simulation, config 5's second half (bench.py::bench_simulation and
+# bench_sim_fit: simulate_peptide.py's CLI defaults on the two-colour
+# 18-mer): molecules, mock and Edman cycles, timed runs after one warm-up,
+# molecules of the host event loop for the distribution gate and its TVD
+# bound, molecules of the card-vs-CPU check and of the chained = two-step
+# check, samples per peptide of the native sampler, molecules of the CLI.
+SIM_SEQ = "ACKDYECAGKHSECAMKR"
+SIM_N, SIM_MOCKS, SIM_EDMANS, SIM_REPS = 100_000, 3, 8, 3
+SIM_PARAMS = dict(p=0.90, b=-math.log(1.0 - 0.1), u=0.50, s=0.30, sc=4,
+                  s2=0.10)
+SIM_BETA, SIM_BETA_SIGMA = 70000.0, 0.20
+SIM_DDIF = [0.0, 0.30] + [0.30] * 5
+SIM_HOST_SAMPLE, SIM_TVD = 3000, 0.05
+SIM_CPU_N, SIM_FIT_TWO_STEP, SIM_SIGNALS, CLI_SIM_N = (20_000, 20_000,
+                                                      100_000, 20_000)
+# The Monte-Carlo detector on frame 0 of config 2: samples per candidate
+# (pflib's default), the candidate bucket (the default call caps at 4096),
+# the planted-spot distance reported; the card against the CPU on a crop.
+MC_N_ITER, MC_K, MC_WITHIN_PX = 1000, 8192, 1.5
+MC_CPU_HW, MC_CPU_K, MC_CPU_ITER = 256, 2048, 200
+# Kernel D, per pixel and sample, from csrc/mc_fit.cuh (an FMA counts 2):
+# the row and column squares amortised (0.8), a + b (1), the quotient (a
+# multiply and two FMAs: 5), the exp (1), A * e + H (2), the maximum (1),
+# the normalising quotient (5), the difference, its square and the sum (3).
+D_OPS_PER_PIXEL = 19
 # Photometry of the card against the CPU: float32 sums of ~2e4 in another
 # order differ by a few ulp (2e-3 each), which a value near 0 cannot absorb
 # relatively.
@@ -1666,6 +1704,358 @@ def fluor_phases(dev, ptxas, experiment_csv):
     return {"launches": launches, "kernels": {"v8_score": numbers}}
 
 
+def _tvd(a, b):
+    """Total variation distance of two {value: count} histograms."""
+    na, nb = sum(a.values()), sum(b.values())
+    return 0.5 * sum(abs(a.get(k, 0) / na - b.get(k, 0) / nb)
+                     for k in set(a) | set(b))
+
+
+def _hist(*cols):
+    return collections.Counter(zip(*(np.asarray(c).tolist() for c in cols)))
+
+
+def sim_phases(tmpl, dev, ptxas):
+    """Simulation and the Monte-Carlo detector on the card: config 5's
+    simulation half (``bench.py::bench_simulation``: 100,000 molecules of
+    the two-colour 18-mer, 12 count cycles) and its simulate -> fit chain
+    (``bench_sim_fit``: kernel C), the native signal sampler, frame 0 of
+    config 2 through ``find_peptides(fit_type="monte_carlo")`` (kernels A
+    and D; D against its twin bit for bit, beside its bound), the card
+    against the CPU on identical draws, and the ``simulate`` subcommand in
+    a process of its own. Emits the "simulation", "sim_fit",
+    "simulate_signals", "mc_detect" and "cli" lines; returns the kernels'
+    launches on each path and their numbers."""
+    import pickle
+
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.inference.lognormal import (
+        photometries_lognormal_fit_v8)
+    from fluorosequencingimageanalysis_torch.models import detect
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        find_candidates, gather_patches)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused, candidate_map_plain)
+    from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
+        v8_score_fused)
+    from fluorosequencingimageanalysis_torch.ops.fused_mc_fit import mc_fit
+    from fluorosequencingimageanalysis_torch.ops.mc_fit import (
+        mc_fit_plain, normalise_patches, sample_params)
+    from fluorosequencingimageanalysis_torch.sim import dye_sim
+    from fluorosequencingimageanalysis_torch.sim.events import (
+        simulate_dye_counts)
+    from fluorosequencingimageanalysis_torch.utils.synth import make_zstack
+
+    seq, labels2, n = SIM_SEQ, {"C", "K"}, SIM_N
+    n_cycles = SIM_MOCKS + SIM_EDMANS
+    sim_kw = dict(num_mocks=SIM_MOCKS, num_edmans=SIM_EDMANS, **SIM_PARAMS)
+
+    # -- simulation: bench_simulation's workload, intensities as float32.
+    def simulate(seed):
+        counts, _ = dye_sim.simulate_dye_counts_batched(
+            seq, labels2, num_simulations=n, seed=seed, device_out=True,
+            device=dev, **sim_kw)
+        intens = [dye_sim.simulate_photometries_batched(
+                      counts[:, :, k], SIM_BETA, SIM_BETA_SIGMA,
+                      seed=seed + 7919 * (k + 1), ddif=SIM_DDIF,
+                      device_out=True) for k in range(2)]
+        return counts, intens
+
+    def simulate_and_fetch(seed):
+        counts, intens = simulate(seed)
+        return counts.cpu().numpy(), [i.cpu().numpy() for i in intens]
+
+    simulate_and_fetch(0)
+    runs = []
+    for rep in range(SIM_REPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        counts, intens = simulate_and_fetch(rep + 1)
+        runs.append({"wall_s": time.perf_counter() - t,
+                     "peak_mem_bytes": int(torch.cuda.max_memory_allocated())})
+    walls = [r["wall_s"] for r in runs]
+    check(counts.shape == (n, n_cycles + 1, 2) and counts.dtype == np.int32
+          and (np.diff(counts, axis=1) <= 0).all(),
+          "simulated counts are (N, cycles + 1, 2) int32 and never rise")
+    check(all(x.dtype == np.float32 and x.shape == (n, n_cycles + 1) and
+              np.array_equal(x == 0, counts[:, :, k] == 0) and
+              np.isfinite(x).all() for k, x in enumerate(intens)),
+          "intensities are finite float32, exactly 0 where a count is 0")
+    device_ms = time_ms(lambda: simulate(9), 5)
+    prof = profile_steps(lambda: simulate(9), 3)
+    host = simulate_dye_counts(seq, labels2, num_simulations=SIM_HOST_SAMPLE,
+                               random_seed=3, **sim_kw)
+    host_counts = {a: np.array([r[1][a] for r in host]) for a in ("C", "K")}
+    tvd = max(max(_tvd(_hist(counts[:, c, k]),
+                       _hist(host_counts[a][:, c]))
+                  for k, a in enumerate(("C", "K"))) for c in
+              range(n_cycles + 1))
+    joint_tvd = max(_tvd(_hist(counts[:, c, 0], counts[:, c, 1]),
+                         _hist(host_counts["C"][:, c], host_counts["K"][:, c]))
+                    for c in range(n_cycles + 1))
+    check(tvd < SIM_TVD and joint_tvd < SIM_TVD,
+          f"per-cycle count histograms against {SIM_HOST_SAMPLE} molecules "
+          f"of the host event loop: TVD {tvd}, joint {joint_tvd}")
+    # The card against the CPU on identical draws, made on the host.
+    draws = dye_sim.draw_simulation(SIM_CPU_N, len(seq), n_cycles, 5, "cpu")
+    normals = dye_sim.draw_normals((SIM_CPU_N, n_cycles + 1), 6, "cpu")
+    color_ids = [0 if a == "C" else 1 if a == "K" else -1 for a in seq]
+    model = dict(num_mocks=SIM_MOCKS, n_colors=2, p=SIM_PARAMS["p"],
+                 per_cycle_b=math.exp(-SIM_PARAMS["b"]), u=SIM_PARAMS["u"],
+                 s=SIM_PARAMS["s"], sc=SIM_PARAMS["sc"], s2=SIM_PARAMS["s2"])
+    on_cpu = dye_sim.simulate_from_draws(draws, color_ids, **model)
+    on_card = dye_sim.simulate_from_draws(
+        dye_sim.SimDraws(*(d.to(dev) for d in draws)), color_ids, **model)
+    check(all(torch.equal(a, b.cpu()) for a, b in zip(on_cpu, on_card)),
+          "counts, loss cycles and duds on the card equal the CPU's on "
+          "identical draws")
+    phot = [dye_sim.photometries_from_normals(
+                normals.to(c.device), c[:, :, 0], math.log(SIM_BETA),
+                SIM_BETA_SIGMA, torch.tensor(SIM_DDIF, device=c.device)
+            ).cpu().numpy() for c in (on_cpu[0], on_card[0])]
+    phot_rel = float(np.max(np.abs(phot[1] - phot[0]) /
+                            np.maximum(np.abs(phot[0]), 1e-30)))
+    check(phot_rel <= 2e-6, f"photometries card vs CPU on identical normals: "
+                            f"max rel {phot_rel}")
+    emit("simulation", molecules=n, sequence=seq, labels=sorted(labels2),
+         cycles=n_cycles + 1, wall_s_median=statistics.median(walls),
+         molecules_per_s=n / statistics.median(walls), runs=runs,
+         device_ms_median=statistics.median(device_ms),
+         device_ms_runs=device_ms, device_ops_per_run=prof[
+             "device_ops_per_step"], device_busy_share=prof[
+             "device_busy_share"], top_device_us=prof["top_device_us"][:6],
+         fetch_bytes=int(counts.nbytes + sum(x.nbytes for x in intens)),
+         tvd_vs_host=tvd, joint_tvd_vs_host=joint_tvd,
+         host_sample=SIM_HOST_SAMPLE, card_vs_cpu_molecules=SIM_CPU_N,
+         photometry_card_vs_cpu_max_rel=phot_rel,
+         note="wall = simulate_dye_counts_batched + both colours' "
+              "simulate_photometries_batched on the card, then counts "
+              "(int32) and intensities (float32) fetched to the host")
+    del on_card, phot
+
+    # -- sim_fit: bench_sim_fit's simulate -> fit chain (kernel C).
+    fit_kw = dict(num_simulations=n, beta=SIM_BETA, beta_sigma=SIM_BETA_SIGMA,
+                  ddif=SIM_DDIF, error_signals=False, device=dev, **sim_kw)
+    dye_sim.simulate_and_fit_batched(seq, {"K"}, seed=0, **fit_kw)
+    fit_runs = []
+    for rep in range(SIM_REPS):
+        torch.cuda.synchronize()
+        v8_score_fused.launches = 0
+        t = time.perf_counter()
+        out = dye_sim.simulate_and_fit_batched(seq, {"K"}, seed=rep + 1,
+                                               **fit_kw)
+        torch.cuda.synchronize()
+        fit_runs.append({"wall_s": time.perf_counter() - t, "launches": {
+            "v8_score": v8_score_fused.launches}})
+        check(sum(out["signals"].values()) + out["none_count"] ==
+              out["total_count"] == n, "sum(signals) + none == N")
+    from fluorosequencingimageanalysis_torch.ops import lognormal as ln
+    check(all(r["launches"]["v8_score"] == -(-n // ln.CUDA_CHUNK)
+              for r in fit_runs), f"kernel C once per chunk: {fit_runs}")
+    # Chained = two-step on the card (the JAX package's closure test).
+    two_n = SIM_FIT_TWO_STEP
+    two_kw = dict(fit_kw, num_simulations=two_n, error_signals=True)
+    chained = dye_sim.simulate_and_fit_batched(seq, {"K"}, seed=5, **two_kw)
+    results = dye_sim.peptide_simulation_batched(
+        seq, {"K"}, num_simulations=two_n, seed=5, beta=SIM_BETA,
+        beta_sigma=SIM_BETA_SIGMA, ddif=SIM_DDIF, device=dev, **sim_kw)
+    mes2 = collections.defaultdict(int)
+    photometries = {"ch1": {0: {}}}
+    for t_i, (decs, dye_counts, _, ci) in enumerate(results):
+        category, (ints,) = ci["K"]
+        photometries["ch1"][0][(t_i, t_i)] = (category, ints, t_i)
+        s_k = dye_counts["K"]
+        mes2[(decs, s_k[-1] == 0, s_k[0])] += 1
+    signals2, total2, none2, _ = photometries_lognormal_fit_v8(
+        photometries, SIM_BETA, SIM_BETA_SIGMA, max_possible=5,
+        allow_upsteps=False, allow_multidrop=True, max_deviation=3,
+        quench_factors=SIM_DDIF, device=dev)
+    check((chained["signals"], chained["none_count"], chained["total_count"],
+           chained["molecular_error_signals"]) ==
+          (signals2, none2, total2, dict(mes2)),
+          f"chained = two-step on the card at N = {two_n}")
+    fit_walls = [r["wall_s"] for r in fit_runs]
+    emit("sim_fit", molecules=n, labels=["K"],
+         wall_s_median=statistics.median(fit_walls),
+         molecules_per_s=n / statistics.median(fit_walls), runs=fit_runs,
+         none_count=out["none_count"], distinct_signals=len(out["signals"]),
+         two_step_equal_at=two_n)
+
+    # -- simulate_signals: the native sampler into a trie (host work).
+    pipe = Pipeline(device=dev)
+    peptides = {"P1": ((seq, ""),), "P2": (("AKCAKDCKA", "KC"),)}
+    windows = {"C": tuple(range(1, n_cycles + 1)),
+               "K": tuple(range(1, n_cycles + 1))}
+    args = (peptides, SIM_PARAMS["p"], SIM_PARAMS["b"], SIM_PARAMS["u"],
+            windows)
+    t = time.perf_counter()
+    trie = pipe.simulate_signals(*args, sample_size=SIM_SIGNALS,
+                                 random_seed=1)
+    sig_s = time.perf_counter() - t
+    leaves = sorted((sig, sorted(dict(c).items()))
+                    for sig, c, _ in trie.leaf_iterator())
+    again = sorted((sig, sorted(dict(c).items())) for sig, c, _ in
+                   pipe.simulate_signals(*args, sample_size=SIM_SIGNALS,
+                                         random_seed=1).leaf_iterator())
+    total = sum(v for _, counts in leaves for _, v in counts)
+    check(leaves == again and 0 < total <= 2 * SIM_SIGNALS,
+          f"simulate_signals is seeded and fills a trie ({total} signals)")
+    emit("simulate_signals", samples=2 * SIM_SIGNALS, wall_s=sig_s,
+         samples_per_s=2 * SIM_SIGNALS / sig_s, leaves=len(leaves),
+         signals=total, cpu=cpu_model(), threads=os.cpu_count())
+
+    # -- mc_detect: frame 0 of config 2 through the Monte-Carlo detector.
+    frames, truth = make_zstack(Z_T, HW, HW, n_spots=800, seed=4,
+                                return_truth=True)
+    frame = frames[0]
+    mc_kw = dict(fit_type="monte_carlo", N_iter=MC_N_ITER)
+    detect.find_peptides(frame, max_candidates=MC_K, **mc_kw)
+    mc_runs = []
+    for rep in range(SIM_REPS):
+        torch.cuda.synchronize()
+        candidate_map_fused.launches = 0
+        mc_fit.launches = 0
+        t = time.perf_counter()
+        psfs = detect.find_peptides(frame, max_candidates=MC_K, **mc_kw)
+        torch.cuda.synchronize()
+        mc_runs.append({"wall_s": time.perf_counter() - t, "launches": {
+            "candidate_map": candidate_map_fused.launches,
+            "mc_fit": mc_fit.launches}, "psfs": len(psfs)})
+    check(all(r["launches"] == {"candidate_map": 1, "mc_fit": 1}
+              for r in mc_runs), f"one launch each of A and D: {mc_runs}")
+    candidate_map_fused.launches = 0
+    mc_fit.launches = 0
+    t = time.perf_counter()
+    psfs_default = detect.find_peptides(frame, **mc_kw)  # the 4096 cap
+    torch.cuda.synchronize()
+    default_s = time.perf_counter() - t
+    default_launches = {"candidate_map": candidate_map_fused.launches,
+                        "mc_fit": mc_fit.launches}
+    check(default_launches == {"candidate_map": 1, "mc_fit": 1},
+          f"the capped call launches A and D once: {default_launches}")
+    # Recovery (reported, not gated): isolated planted spots with a kept
+    # Monte-Carlo fit whose model peak (center + 0.5, the p + h - 2.5
+    # convention) lies within MC_WITHIN_PX.
+    peaks = np.array([(v[0] + 0.5, v[1] + 0.5) for v in psfs.values()])
+    d_truth = np.sqrt(((truth[:, None, :] - truth[None, :, :]) ** 2)
+                      .sum(-1)) + np.eye(len(truth)) * 1e9
+    isolated = truth[d_truth.min(axis=1) > ISOLATED_PX]
+    near = np.sqrt(((isolated[:, None, :] - peaks[None, :, :]) ** 2)
+                   .sum(-1)).min(axis=1) <= MC_WITHIN_PX
+    check(len(psfs) > 300 and all(np.isfinite(v[:7]).all() and
+                                  v[7].shape == v[8].shape == (5, 5)
+                                  for v in psfs.values()),
+          f"finite Monte-Carlo psfs of the reference's shape ({len(psfs)})")
+    # Kernel D alone at this path's shapes, against its twin.
+    img = torch.from_numpy(frame.astype(np.float32)).to(dev)
+    hs, ws, valid, count = find_candidates(img, max_candidates=MC_K)
+    patches = normalise_patches(gather_patches(img, hs, ws))
+    samples = sample_params(patches, detect.draw_mc_normals(
+        MC_N_ITER, MC_K, 0, dev)).contiguous()
+    got = mc_fit(patches, samples)
+    ref = mc_fit_plain(patches, samples)
+    torch.cuda.synchronize()
+    diff = {"params": int((got[0].view(torch.int32) !=
+                           ref[0].view(torch.int32)).any(dim=1).sum()),
+            "norm": int((got[1].view(torch.int32) !=
+                         ref[1].view(torch.int32)).sum())}
+    finite = torch.isfinite(ref[1])
+    err_d = float((got[1] - ref[1])[finite].abs().max())
+    check(not any(diff.values()) and err_d == 0.0,
+          f"kernel D vs twin on all {MC_K} candidates x {MC_N_ITER} samples: "
+          f"{diff}")
+    d_ms = time_ms(lambda: mc_fit(patches, samples), 10)
+    d_plain = time_ms(lambda: mc_fit_plain(patches, samples), 2)
+    d_bytes = samples.numel() * 4 + patches.numel() * 4 + MC_K * 7 * 4
+    d_bound, d_by = bound(d_bytes, MC_K * MC_N_ITER * 25 * D_OPS_PER_PIXEL)
+    d_med = statistics.median(d_ms)
+    # Kernel A at this path's shape (one 512x512 frame).
+    one = img[None]
+    err_a = float((candidate_map_fused(one, tmpl) -
+                   candidate_map_plain(one, tmpl)).abs().max())
+    check(err_a == 0.0, f"kernel A vs twin at {tuple(one.shape)}: {err_a}")
+    a_ms = time_ms(lambda: candidate_map_fused(one, tmpl), 20)
+    a_plain = time_ms(lambda: candidate_map_plain(one, tmpl), 5)
+    a_bound, a_by = bound(2 * one.numel() * 4, one.numel() * A_OPS_PER_PIXEL)
+    del samples, got, ref
+    # The card against the CPU on identical draws, on a reduced crop.
+    crop = torch.from_numpy(frame[:MC_CPU_HW, :MC_CPU_HW].astype(np.float32))
+    z = torch.randn((6, MC_CPU_ITER, MC_CPU_K),
+                    generator=torch.Generator().manual_seed(0))
+    small = dict(max_candidates=MC_CPU_K, n_iter=MC_CPU_ITER, normals=z)
+    card = detect._detect_and_fit_monte_carlo(crop.to(dev), **small)
+    cpu = detect._detect_and_fit_monte_carlo(crop, **small)
+    same_cands = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+                     for f in ("cand_h", "cand_w", "cand_valid",
+                               "cand_count"))
+    v = cpu.cand_valid
+    param_share = float(torch.isclose(card.params.cpu(), cpu.params,
+                                      rtol=1e-5, atol=1e-5).all(dim=1)[v]
+                        .float().mean())
+    keep_differ = int((card.keep.cpu() != cpu.keep).sum())
+    check(same_cands and param_share > 0.98 and
+          keep_differ <= 0.01 * int(v.sum()),
+          f"card vs CPU on identical draws: candidates equal {same_cands}, "
+          f"params equal on {param_share}, keep differs on {keep_differ}")
+    mc_walls = [r["wall_s"] for r in mc_runs]
+    d_numbers = {"shape": {"K": MC_K, "n_iter": MC_N_ITER},
+                 "max_abs_err": err_d, "ms": d_med,
+                 "plain_ms": statistics.median(d_plain), "bound_ms": d_bound,
+                 "bound_by": d_by, "share_of_bound": d_bound / d_med}
+    a_numbers = {"shape": list(one.shape), "max_abs_err": err_a,
+                 "ms": statistics.median(a_ms),
+                 "plain_ms": statistics.median(a_plain), "bound_ms": a_bound,
+                 "bound_by": a_by,
+                 "share_of_bound": a_bound / statistics.median(a_ms)}
+    emit("mc_detect", shape=list(frame.shape), candidates=int(count),
+         max_candidates=MC_K, n_iter=MC_N_ITER,
+         wall_s_median=statistics.median(mc_walls), runs=mc_runs,
+         kept_psfs=len(psfs), default_cap={
+             "max_candidates": 4096, "wall_s": default_s,
+             "kept_psfs": len(psfs_default), "launches": default_launches},
+         isolated_planted=int(len(isolated)),
+         isolated_within_px_share=float(near.mean()),
+         within_px=MC_WITHIN_PX, kernel_d={
+             **d_numbers, **ptxas["mc_fit"], "ms_runs": d_ms,
+             "plain_ms_runs": d_plain, "bound_bytes": d_bytes,
+             "mismatches_vs_twin": diff, "exp_per_sample": 25,
+             "note": "25 expf a sample run on the special-function unit"},
+         kernel_a=a_numbers, card_vs_cpu={
+             "crop": MC_CPU_HW, "max_candidates": MC_CPU_K,
+             "n_iter": MC_CPU_ITER, "candidates_equal": same_cands,
+             "params_equal_share": param_share, "keep_differing": keep_differ})
+
+    # -- cli: the simulate subcommand in a process of its own.
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = os.path.join(tmp, "sims.pkl")
+        argv = ["simulate", seq, "K", "--num-sims", str(CLI_SIM_N),
+                "--num-mocks", str(SIM_MOCKS), "--num-edmans",
+                str(SIM_EDMANS), "--fluor-intensity", str(SIM_BETA),
+                "--edman-efficiency", "0.9", "--dye-destruction", "0.1",
+                "--dud-dyes", "0.5", "--surface-degradation-1", "0.3",
+                "--surface-degradation-1-num-cycles", "4",
+                "--surface-degradation-2", "0.1", "--ddif", "0.3",
+                "--results-pkl", pkl]
+        summary, cli_s = run_cli(argv)
+        with open(pkl, "rb") as fh:
+            sims = pickle.load(fh)
+        api = dye_sim.peptide_simulation_batched(
+            seq, "K", num_simulations=CLI_SIM_N, seed=0, beta=SIM_BETA,
+            beta_sigma=SIM_BETA_SIGMA, ddif=(0.0,) + (0.3,) * seq.count("K"),
+            device=dev, **sim_kw)
+        check(summary["simulations"] == len(sims) == CLI_SIM_N and
+              [s[:2] for s in sims] == [s[:2] for s in api],
+              f"simulate pickles the API's molecules: {summary}")
+    emit("cli", command="simulate", simulations=summary["simulations"],
+         distinct_patterns=summary["distinct_patterns"], wall_s=cli_s)
+    return {"launches": {"mc_detect": mc_runs[0]["launches"],
+                         "mc_detect_default": default_launches,
+                         "sim_fit": fit_runs[0]["launches"]},
+            "kernels": {"mc_fit": {"mc_detect": d_numbers},
+                        "candidate_map": {"mc_detect": a_numbers}}}
+
+
 def headline_phases(tmpl, dev, ptxas, profile=False):
     """Kernels A and B against their twins at the headline shapes, the
     experiment step through ``Pipeline(device="cuda").run_stack``, the card
@@ -1983,6 +2373,8 @@ def main():
     if "fluor" in phases:  # config 5
         done["fluor"] = fluor_phases(
             dev, ptxas, done.get("experiment", {}).get("track_csv"))
+    if "sim" in phases:  # simulation and the Monte-Carlo detector
+        done["sim"] = sim_phases(tmpl, dev, ptxas)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_summary(done, ptxas)}), flush=True)
@@ -1996,7 +2388,7 @@ def kernel_summary(done, ptxas):
     numbers of kernels A and B are the headline step's (or, where that
     group did not run, the first path's that did); each other path's
     launches and numbers follow under its own name. No single PyTorch call
-    computes any of the three functions: ``library_ms`` is null (kernel
+    computes any of the four functions: ``library_ms`` is null (kernel
     C's nearest composition of library calls is timed beside it as
     ``matmul_composition_ms``)."""
     meta = {
@@ -2009,6 +2401,9 @@ def kernel_summary(done, ptxas):
         "v8_score": (
             "fluorosequencingimageanalysis_torch/csrc/v8_score.cu",
             "fluorosequencingimageanalysis_tpu/ops/lognormal.py:60"),
+        "mc_fit": (
+            "fluorosequencingimageanalysis_torch/csrc/mc_fit.cu",
+            "fluorosequencingimageanalysis_tpu/models/detect.py:762"),
     }
     # {kernel: [(path, launches, numbers), ...]} in the order of the run.
     paths = {name: [] for name in meta}
@@ -2032,6 +2427,12 @@ def kernel_summary(done, ptxas):
         f = done["fluor"]
         paths["v8_score"].append(("v8", f["launches"]["v8"]["v8_score"],
                                   f["kernels"]["v8_score"]))
+    if "sim" in done:
+        g = done["sim"]
+        for name in ("mc_fit", "candidate_map"):
+            paths[name].append(("mc_detect",
+                                g["launches"]["mc_detect"][name],
+                                g["kernels"][name]["mc_detect"]))
     out = []
     for name, (source, replaces) in meta.items():
         if not paths[name]:
@@ -2043,13 +2444,13 @@ def kernel_summary(done, ptxas):
                                         "bound_ms", "bound_by")},
                  "library_ms": None, "share_of_bound": top["share_of_bound"],
                  **ptxas[name]}
-        if name == "v8_score":
+        if name in ("v8_score", "mc_fit"):
             entry.update({k: v for k, v in top.items() if k not in entry})
-        if "experiment" in done and name != "v8_score":
+        if "experiment" in done and name in ("candidate_map", "fit_quality"):
             entry["launches_experiment"] = \
                 done["experiment"]["launches"][name]
             entry["experiment"] = done["experiment"]["kernels"][name]
-        for group in ("zstack", "timetrace", "fluor"):
+        for group in ("zstack", "timetrace", "fluor", "sim"):
             if group not in done:
                 continue
             for path, n in done[group]["launches"].items():

@@ -20,6 +20,8 @@ on the subcommands that use a device:
         out/SIGNALS.pkl --control-pkls c1.pkl c2.pkl --num-cycles 12
     python -m fluorosequencingimageanalysis_torch remainder-correct \\
         out/track_photometries.csv
+    python -m fluorosequencingimageanalysis_torch simulate \\
+        ACKDYECAGKHSECAMKR K --num-sims 100000 --results-pkl sims.pkl
 
 run-experiment groups files by the reference's directory=cycle,
 filename=field convention (flexlibrary.py:1105-1154), runs the one-call
@@ -32,8 +34,9 @@ step-fits the traces of a track CSV or an .npy matrix and writes the
 per-frame step-fit CSV; fluor-counts runs the v8 lognormal fit over a track
 CSV (manual beta, or --auto-calibrate) and prints the counts;
 background-correct and remainder-correct are host code and take no
---device. Raw uint16 images upload as-is and are cast on the device. The
-JAX package's simulate subcommand is not registered yet.
+--device; simulate runs the batched Monte-Carlo dye simulation and prints
+the commonest dye-decrement patterns. Raw uint16 images upload as-is and
+are cast on the device.
 """
 
 from __future__ import annotations
@@ -242,6 +245,43 @@ def _cmd_timetrace(args):
         summary["stages_sec"] = {k: round(v["total"], 3)
                                  for k, v in profiling.timings().items()}
     print(json.dumps(summary, default=str))
+    return 0
+
+
+def _cmd_simulate(args):
+    import math
+
+    from .sim.dye_sim import peptide_simulation_batched
+
+    # simulate_photometries_batched wants a per-dye-count quench array;
+    # expand the scalar CLI flag the way fluor_counts_calibrated does: no
+    # quench for a single dye, ddif for every higher count.
+    n_labeled = sum(aa in args.labels for aa in args.sequence)
+    ddif = None if args.ddif is None else tuple(
+        [0.0] + [args.ddif] * max(n_labeled, 1))
+    results = peptide_simulation_batched(
+        args.sequence, args.labels, num_mocks=args.num_mocks,
+        num_edmans=args.num_edmans, num_simulations=args.num_sims,
+        seed=args.seed, beta=args.fluor_intensity,
+        beta_sigma=args.beta_sigma, ddif=ddif, device=args.device,
+        p=args.edman_efficiency,
+        b=-math.log(1.0 - args.dye_destruction),
+        u=args.dud_dyes,
+        s=args.surface_degradation_1,
+        sc=args.surface_degradation_1_num_cycles,
+        s2=args.surface_degradation_2)
+    decrement_counts = {}
+    for decrements, _, _, _ in results:
+        decrement_counts[decrements] = decrement_counts.get(decrements,
+                                                            0) + 1
+    if args.results_pkl:
+        with open(args.results_pkl, "wb") as fh:
+            pickle.dump(results, fh)
+    top = sorted(decrement_counts.items(), key=lambda kv: -kv[1])[:20]
+    print(json.dumps({"simulations": args.num_sims,
+                      "distinct_patterns": len(decrement_counts),
+                      "top_patterns": [[str(k), v] for k, v in top],
+                      "results_pkl": args.results_pkl}, default=str))
     return 0
 
 
@@ -649,6 +689,34 @@ def build_parser():
                     help="where the work runs: cuda (default), cuda:N "
                          "or cpu")
     tt.set_defaults(func=_cmd_timetrace)
+
+    sim = sub.add_parser(
+        "simulate",
+        help="batched Monte-Carlo peptide simulation (exact joint "
+             "multi-color dye sim)")
+    sim.add_argument("sequence", help="peptide amino-acid sequence")
+    sim.add_argument("labels", help="labeled amino acids, e.g. 'C' or 'CK'")
+    sim.add_argument("--num-mocks", type=int, default=4)
+    sim.add_argument("--num-edmans", type=int, default=8)
+    sim.add_argument("--num-sims", type=int, default=10000)
+    sim.add_argument("--seed", type=int, default=0)
+    sim.add_argument("--fluor-intensity", type=float, default=30000.0)
+    sim.add_argument("--beta-sigma", type=float, default=0.2)
+    sim.add_argument("--edman-efficiency", type=float, default=0.94)
+    sim.add_argument("--dye-destruction", type=float, default=0.05)
+    sim.add_argument("--dud-dyes", type=float, default=0.3)
+    sim.add_argument("--surface-degradation-1", type=float, default=0.0)
+    sim.add_argument("--surface-degradation-1-num-cycles", type=int,
+                     default=0)
+    sim.add_argument("--surface-degradation-2", type=float, default=0.0)
+    sim.add_argument("--ddif", type=float, default=None,
+                     help="dye-dye interaction quench factor")
+    sim.add_argument("--results-pkl", default=None,
+                     help="dump the per-molecule FluorEvent results pkl")
+    sim.add_argument("--device", default="cuda",
+                     help="where the simulation runs: cuda (default), "
+                          "cuda:N or cpu")
+    sim.set_defaults(func=_cmd_simulate)
 
     sf = sub.add_parser(
         "stepfit",

@@ -1281,3 +1281,18 @@ class Pipeline:
                        "original_beta": float(original_beta),
                        "original_beta_sigma": float(original_bs)}
         return signals, total, none_count, fit_info, calibration
+
+    # -- simulation ----------------------------------------------------------
+
+    def simulate_signals(self, peptides, p, b, u, windows, sample_size=100,
+                         random_seed=None):
+        """Monte-Carlo signal trie (MCsimlib.py:1787-1849) from the native
+        C++ sampler (csrc/randsiggen.cpp, built with g++ at first use). A
+        failed build raises: the JAX package's quiet rerun on the Python
+        sampler would draw from another stream."""
+        from .native.randsiggen import monte_carlo_trie_native
+
+        with self._stage("api/simulate_signals"):
+            return monte_carlo_trie_native(
+                peptides, p, b, u, windows, sample_size=sample_size,
+                random_seed=random_seed)

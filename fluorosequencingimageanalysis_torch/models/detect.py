@@ -14,11 +14,14 @@ forms return the reference's psfs contract ({(rounded h, rounded w):
 and run on the card unless the caller names the CPU; tensors they are
 handed stay where they are.
 
-Not ported: ``fit_type="monte_carlo"`` (it draws from jax.random and goes
-with the simulation slice; it raises NotImplementedError here), and the
-JAX package's float packs for its device link (``_fit_chunk_packed``'s 15
-columns, ``_lean_pack``, the power-of-two fit-image bucket): the port
-fetches the fields as they are.
+``fit_type="monte_carlo"`` takes ``_detect_and_fit_monte_carlo``: kernel A's
+candidates, the normalised patches, and kernel D's random search over
+sampled circular models (ops/fused_mc_fit.py), drawn from a
+``torch.Generator`` seeded with ``rng_seed``.
+
+Not ported: the JAX package's float packs for its device link
+(``_fit_chunk_packed``'s 15 columns, ``_lean_pack``, the power-of-two
+fit-image bucket): the port fetches the fields as they are.
 """
 
 from __future__ import annotations
@@ -32,10 +35,14 @@ import torch
 from .._device import resolve_device
 from ..ops.candidates import (DEFAULT_CORRELATION_MATRIX,
                               candidate_maps_batch, extract_candidates_chunk,
-                              find_candidates_batch)
+                              find_candidates, find_candidates_batch,
+                              gather_patches)
 from ..ops.consolidate import consolidate, consolidate_host
 from ..ops.fused_fit import fit_quality
+from ..ops.fused_mc_fit import mc_fit
 from ..ops.gaussian import gauss2d_image
+from ..ops.mc_fit import grids, mc_model, normalise_patches, sample_params
+from ..ops.quality import illumina_s_n, r_squared, rmse
 from ..utils.rounding import py2_round
 
 logger = logging.getLogger(__name__)
@@ -304,17 +311,17 @@ def find_peptides(image, median_filter_size=5, correlation_matrix=None,
     max_candidates=None (the default) is exhaustive, like the reference:
     the chunked path fits every above-threshold candidate. An integer
     caps the bucket (one device program; a warning when the image exceeds
-    it). ``fit_type="monte_carlo"`` is not ported and raises
-    NotImplementedError. ``device``: where detection and the fits run.
+    it). ``device``: where detection and the fits run.
+
+    fit_type='monte_carlo' is the reference's normalised random-search
+    fitter (pflib.py:117-177) over candidates and ``N_iter`` samples drawn
+    from ``rng_seed``; its fit image is the best sampled surface (the
+    reference returns the last sampled one, which is not reproduced). It
+    keeps a 4096 cap when max_candidates is None.
     """
     if consolidation_radius < 2:
         raise ValueError("consolidation_radius must be at least 2")
-    if fit_type == "monte_carlo":
-        raise NotImplementedError(
-            "fit_type='monte_carlo' (the normalised random-search fitter, "
-            "pflib.py:117-177) is not ported to the PyTorch package yet: "
-            "it comes with the simulation slice (ROADMAP item 15)")
-    if fit_type != "gauss":
+    if fit_type not in ("gauss", "monte_carlo"):
         raise ValueError(f"unknown fit_type {fit_type!r}")
     # The reference documents candidate_pixels as not implemented and
     # overwrites it (pflib.py:374, 434): a passed value is ignored, here
@@ -327,7 +334,17 @@ def find_peptides(image, median_filter_size=5, correlation_matrix=None,
     img_dev = _as_images(image, device, dtype)
     correlation_matrix = _prep_correlation_matrix(correlation_matrix)
 
-    if max_candidates is None:
+    if fit_type == "monte_carlo":
+        if max_candidates is None:
+            max_candidates = 4096
+        res = _numpy_fields(_detect_and_fit_monte_carlo(
+            img_dev, median_filter_size=median_filter_size,
+            correlation_matrix=correlation_matrix, c_std=float(c_std),
+            r_2_threshold=float(r_2_threshold),
+            consolidation_radius=float(consolidation_radius),
+            max_candidates=max_candidates, n_iter=N_iter,
+            rng_seed=rng_seed))
+    elif max_candidates is None:
         res_b = detect_and_fit_exhaustive(
             img_dev[None], median_filter_size=median_filter_size,
             correlation_matrix=correlation_matrix, c_std=float(c_std),
@@ -352,7 +369,8 @@ def find_peptides(image, median_filter_size=5, correlation_matrix=None,
             count, max_candidates)
     return _psfs_from_arrays(image, np.nonzero(res.keep)[0], res.params,
                              res.center_h, res.center_w, res.rmse, res.r2,
-                             res.s_n, res.cand_h, res.cand_w)
+                             res.s_n, res.cand_h, res.cand_w,
+                             fit_type=fit_type)
 
 
 def _center_keys(keep_idx, center_h, center_w, params):
@@ -415,15 +433,18 @@ def find_peptide_centers(image, median_filter_size=5, c_std=2.0,
 
 
 def _psfs_from_arrays(image, idx, params, center_h, center_w, rm, r2, sn,
-                      cand_h, cand_w):
+                      cand_h, cand_w, fit_type="gauss"):
     """Kept-fit arrays -> the reference psfs dict (pflib.py:395-428).
 
-    ``fit_img`` is the model of the kept parameters on the 5x5 grid, all
-    kept spots in one batched evaluation on the host, in float32 (the JAX
-    package's production dtype; its tests run it in float64)."""
+    ``fit_img`` of a Gaussian fit is the model of the kept parameters on
+    the 5x5 grid, all kept spots in one batched evaluation on the host, in
+    float32 (the JAX package's production dtype; its tests run it in
+    float64). A Monte-Carlo fit's ``sub_img`` is the normalised float64
+    patch it was fitted to and its ``fit_img`` the best sample's surface
+    (``_mc_fit_image``)."""
     out = {}
     fit_imgs = None
-    if len(idx):
+    if fit_type != "monte_carlo" and len(idx):
         fit_imgs = gauss2d_image(
             torch.from_numpy(np.ascontiguousarray(params[idx],
                                                   dtype=np.float32)),
@@ -431,10 +452,17 @@ def _psfs_from_arrays(image, idx, params, center_h, center_w, rm, r2, sn,
     for j, i in enumerate(idx):
         h, w = int(cand_h[i]), int(cand_w[i])
         sub_img = image[h - 2:h + 3, w - 2:w + 3].astype(np.int64)
+        if fit_type == "monte_carlo":
+            # pflib.py:444-450 normalises sub_img in place before fitting
+            # and stores the normalised copy.
+            smin = sub_img.min()
+            shifted = (sub_img - smin).astype(np.float64)
+            sub_img = shifted / max(float(shifted.max()), 1e-300)
         p = params[i]
+        fit_img = fit_imgs[j] if fit_imgs is not None else _mc_fit_image(p)
         h_0, w_0 = float(center_h[i]), float(center_w[i])
         psf = (h_0, w_0, float(p[0]), float(p[1]), float(p[4]), float(p[5]),
-               float(p[6]), sub_img, fit_imgs[j], float(rm[i]),
+               float(p[6]), sub_img, fit_img, float(rm[i]),
                float(r2[i]), float(sn[i]))
         # Py2 half-away-from-zero rounding keeps the keys the reference's
         # (pflib.py:513-519 under Python 2 round()).
@@ -503,3 +531,74 @@ def find_peptides_batch(images, median_filter_size=5, correlation_matrix=None,
     return psfs_dicts_from_batch(
         images, res.keep, res.params, res.center_h, res.center_w, res.rmse,
         res.r2, res.s_n, res.cand_h, res.cand_w, consolidation_radius)
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo fit path (reference pflib.py:117-177, fit_type='monte_carlo')
+# ---------------------------------------------------------------------------
+
+def _mc_fit_image(p):
+    """Best-sample MC fit surface, normalized by its max (pflib.py:159-161)."""
+    h_grid, w_grid = np.meshgrid(np.arange(5.0), np.arange(5.0), indexing="ij")
+    g = p[1] * np.exp(-(((h_grid - p[2]) ** 2) + ((w_grid - p[3]) ** 2))
+                      / (2.0 * p[4] ** 2)) + p[0]
+    return g / g.max()
+
+
+def draw_mc_normals(n_iter, n, rng_seed, device):
+    """(6, n_iter, n) float32 standard normals of one Monte-Carlo fit, from
+    a generator seeded with ``rng_seed`` (the H, A, h0, w0, sigma_h,
+    sigma_w draws, in that order)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng_seed))
+    return torch.randn((6, n_iter, n), generator=gen, device=device)
+
+
+def _detect_and_fit_monte_carlo(image, median_filter_size=5,
+                                correlation_matrix=None, c_std=2.0,
+                                r_2_threshold=0.7, consolidation_radius=4.0,
+                                max_candidates=4096, n_iter=1000, rng_seed=0,
+                                normals=None):
+    """Detection + Monte-Carlo fit of one (H, W) float image tensor on its
+    device; returns a SpotFindResult of tensors without the batch axis.
+
+    Candidates come from kernel A (``find_candidates``); each 5x5 patch is
+    min-max normalised, and kernel D (``ops/fused_mc_fit.mc_fit``) keeps
+    the best of ``n_iter`` sampled circular models. R^2, RMSE and S/N are
+    taken on the normalised patches; params slot 5 is the sampled sigma_w
+    (the reference stores it though its model ignores it) and slot 6 is 0.
+    ``normals``: (6, n_iter, max_candidates) standard normals to use in
+    place of the generator's (the tests feed the JAX package's)."""
+    if correlation_matrix is None:
+        correlation_matrix = DEFAULT_CORRELATION_MATRIX
+    dt, dev = image.dtype, image.device
+    with torch.no_grad():
+        hs, ws, valid, count = find_candidates(
+            image, median_filter_size=median_filter_size,
+            correlation_matrix=np.asarray(correlation_matrix), c_std=c_std,
+            max_candidates=max_candidates)
+        patches = normalise_patches(gather_patches(image, hs, ws, radius=2))
+        n = patches.shape[0]
+        z = (draw_mc_normals(n_iter, n, rng_seed, dev) if normals is None
+             else torch.as_tensor(normals, dtype=dt, device=dev))
+        best_p, _ = mc_fit(patches, sample_params(patches, z).contiguous())
+        params = torch.cat([best_p, best_p.new_zeros((n, 1))], dim=1)
+        h_grid, w_grid = grids(dt, dev)
+        g = mc_model(best_p, h_grid, w_grid)
+        g = g / g.reshape(n, -1).amax(dim=-1)[:, None, None]
+        r2 = r_squared(patches, g)
+        rm = rmse(patches, g)
+        sn = illumina_s_n(patches)
+        center_h = params[:, 2] + hs.to(dt) - 2.5
+        center_w = params[:, 3] + ws.to(dt) - 2.5
+        # ~(r2 < thr): a NaN R^2 is kept, like the reference's
+        # discard-if-less gate (pflib.py:465-467).
+        passed = valid & ~(r2 < r_2_threshold)
+        # The candidate-window gate: Monte-Carlo centers drift up to
+        # ~2.5 px, so center distance alone would pit fits against each
+        # other that the reference never compares (pflib.py:491-495).
+        keep = consolidate(center_h, center_w, r2, passed,
+                           radius=consolidation_radius, cand_h=hs.to(dt),
+                           cand_w=ws.to(dt))
+    return SpotFindResult(hs, ws, params, center_h, center_w, rm, r2, sn,
+                          keep, valid, count)

@@ -155,6 +155,18 @@ def find_candidates_batch(images, median_filter_size=5,
     return _threshold_and_extract_batch(cms, max_candidates, float(c_std))
 
 
+def find_candidates(image, median_filter_size=5, correlation_matrix=None,
+                    c_std=2.0, max_candidates=4096):
+    """Static-shape candidate extraction of one (H, W) image: the batch
+    form on a batch of one. Returns (hs, ws, valid, count): (max_candidates,)
+    int32 coordinates (padding points at (2, 2)), the validity mask, and
+    the true candidate count (above max_candidates on overflow)."""
+    hs, ws, valid, count = find_candidates_batch(
+        image[None], median_filter_size, correlation_matrix, c_std,
+        max_candidates)
+    return hs[0], ws[0], valid[0], count[0]
+
+
 def extract_candidates_chunk(cms, excluded, chunk, c_std):
     """One chunk of exhaustive candidate extraction from (B, H, W) maps.
 

@@ -15,6 +15,7 @@ and ``remainder-correct`` print the JAX CLI's summary and write its files:
 signals pickles and calibrations equal, corrected CSVs byte-equal.
 """
 
+import argparse
 import csv
 import json
 import os
@@ -25,6 +26,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
 
 from fluorosequencingimageanalysis_tpu import batch as jax_batch
 from fluorosequencingimageanalysis_tpu.__main__ import (
@@ -38,6 +42,8 @@ from fluorosequencingimageanalysis_torch.config import (DetectConfig,
                                                         PhotometryConfig,
                                                         PipelineConfig,
                                                         StepfitConfig)
+from fluorosequencingimageanalysis_torch.models import detect as port_detect
+from fluorosequencingimageanalysis_torch.sim import dye_sim as port_sim
 from fluorosequencingimageanalysis_torch.utils import synth
 
 torch.set_num_threads(1)  # tier-1 runs several xdist workers per host
@@ -108,7 +114,7 @@ def test_detect_writes_the_jax_packages_artifacts(tmp_path, capsys):
     assert _json_line(capsys)["processed"] == 0
 
 
-def test_batch_runners_match_the_jax_packages(tmp_path):
+def test_batch_runners_match_the_jax_packages(tmp_path, monkeypatch):
     paths = {}
     for name in ("port", "jax"):
         (tmp_path / name).mkdir()
@@ -143,10 +149,27 @@ def test_batch_runners_match_the_jax_packages(tmp_path):
         assert out.endswith("x.csv")
     with pytest.raises(ValueError, match="image_path or output_path"):
         port_batch.save_psfs_pkl({})
-    # monte_carlo is not ported: the per-image runner logs and skips.
-    assert port_batch.parallel_image_batch(
-        paths["port"][:1], find_peptides_parameters={
-            "fit_type": "monte_carlo", "device": "cpu"}) == {}
+    # monte_carlo takes the per-image runner; on the JAX package's draws
+    # its artifacts hold the JAX package's psfs.
+    mc = {"fit_type": "monte_carlo", "N_iter": 20, "max_candidates": 128}
+    z = np.stack([np.asarray(jax.random.normal(k, (20, 128), jnp.float32))
+                  for k in jax.random.split(jax.random.PRNGKey(0), 6)])
+    monkeypatch.setattr(port_detect, "draw_mc_normals",
+                        lambda *a: torch.from_numpy(z))
+    got = port_batch.parallel_image_batch(
+        paths["port"][:1], find_peptides_parameters={**mc, "device": "cpu"},
+        timestamp_epoch=79)
+    ref = jax_batch.parallel_image_batch(
+        paths["jax"][:1], find_peptides_parameters=mc, timestamp_epoch=79)
+    assert len(got) == len(ref) == 1
+    with open(next(iter(got.values()))[1], "rb") as a, \
+            open(next(iter(ref.values()))[1], "rb") as b:
+        psfs, want = pickle.load(a), pickle.load(b)
+    assert list(psfs) == list(want) and len(want) >= 3
+    for key in want:
+        np.testing.assert_allclose(psfs[key][:7], want[key][:7], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(psfs[key][7], want[key][7])
 
 
 def test_zstack_cli_rows_are_the_apis_kept_fits(tmp_path, capsys):
@@ -377,10 +400,13 @@ def test_parser_has_the_ported_subcommands_and_the_cards_default(tmp_path):
     for argv in (["detect", "a.tif"], ["zstack", "a.npy"],
                  ["run-experiment", "--peptide-files", "a.tif"],
                  ["timetrace", "--frames", "a.tif"], ["stepfit", "a.csv"],
-                 ["fluor-counts", "a.csv"]):
+                 ["fluor-counts", "a.csv"], ["simulate", "ACK", "C"]):
         assert parser.parse_args(argv).device == "cuda"
-    with pytest.raises(SystemExit):
-        parser.parse_args(["simulate", "ACK", "C"])
+    subcommands = [sorted(next(
+        a for a in p._actions
+        if isinstance(a, argparse._SubParsersAction)).choices)
+        for p in (parser, jax_build_parser())]
+    assert subcommands[0] == subcommands[1] and len(subcommands[0]) == 9
     args = parser.parse_args(["stepfit", "--npy", "p.npy"])
     assert (args.method, args.mirror_start, args.chung_kennedy,
             args.p_threshold, args.num_steps, args.csv) == (
@@ -577,7 +603,7 @@ def test_remainder_correct_cli_matches_the_jax_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("name", ["fluor-counts", "background-correct",
-                                  "remainder-correct"])
+                                  "remainder-correct", "simulate"])
 def test_inference_subcommands_have_the_jax_clis_flags(name):
     def flags(parser):
         sub = next(a for a in parser._actions
@@ -586,11 +612,61 @@ def test_inference_subcommands_have_the_jax_clis_flags(name):
                          a.choices and tuple(a.choices), a.required)
                 for a in sub.choices[name]._actions}
 
-    import argparse
     got, want = flags(build_parser()), flags(jax_build_parser())
     device = got.pop("device", None)
     assert got == want
-    if name == "fluor-counts":
+    if name in ("fluor-counts", "simulate"):
         assert device == (("--device",), "cuda", None, None, None, False)
     else:
         assert device is None  # host code
+
+
+def _jax_sim_draws(N, L, C, seed, device):
+    """The uniforms of the JAX package's _simulate_batch (PRNGKey(seed))."""
+    k_dud, k_tirf0, k_cycle = jax.random.split(jax.random.PRNGKey(seed), 3)
+    per_cycle = [jax.random.split(k, 3) for k in jax.random.split(k_cycle,
+                                                                  C)]
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return port_sim.SimDraws(
+        t(jax.random.uniform(k_dud, (N, L))),
+        t(jax.random.uniform(k_tirf0, (N, L))),
+        t([jax.random.uniform(k[0], (N,)) for k in per_cycle]),
+        t([jax.random.uniform(k[1], (N,)) for k in per_cycle]),
+        t([jax.random.uniform(k[2], (N, L)) for k in per_cycle]))
+
+
+def test_simulate_cli_equals_the_jax_clis_on_its_draws(tmp_path, capsys,
+                                                       monkeypatch):
+    """``simulate`` prints the JAX CLI's summary and pickles its results
+    when both draw the same numbers (the port's generator is swapped for
+    the JAX package's draws)."""
+    monkeypatch.setattr(port_sim, "draw_simulation", _jax_sim_draws)
+    monkeypatch.setattr(
+        port_sim, "draw_normals",
+        lambda shape, seed, device: torch.from_numpy(np.asarray(
+            jax.random.normal(jax.random.PRNGKey(seed), shape,
+                              jnp.float32))).to(device))
+    argv = ["simulate", "ACKDYECAGKHSECAMKR", "CK", "--num-sims", "300",
+            "--num-mocks", "3", "--dud-dyes", "0.5",
+            "--surface-degradation-1", "0.3",
+            "--surface-degradation-1-num-cycles", "4", "--ddif", "0.3"]
+    assert main([*argv, "--results-pkl", str(tmp_path / "port.pkl"),
+                 "--device", "cpu"]) == 0
+    got = _json_line(capsys)
+    assert jax_main([*argv, "--results-pkl", str(tmp_path / "jax.pkl")]) == 0
+    want = _json_line(capsys)
+    assert got.pop("results_pkl") != want.pop("results_pkl")
+    assert got == want and got["distinct_patterns"] > 20
+    port_res, jax_res = (_pickle_at(tmp_path / f"{n}.pkl")
+                         for n in ("port", "jax"))
+    assert len(port_res) == len(jax_res) == 300
+    for g, w in zip(port_res, jax_res):
+        assert g[:3] == w[:3]
+        for label in w[3]:
+            assert g[3][label][0] == w[3][label][0]
+            np.testing.assert_allclose(g[3][label][1][0],
+                                       w[3][label][1][0], rtol=2e-6)
+

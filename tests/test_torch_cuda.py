@@ -473,3 +473,119 @@ def test_fluor_counts_on_the_card_matches_cpu(dev, tmp_path):
     got = card.fluor_counts_calibrated(path, max_possible=3)
     assert got == cpu.fluor_counts_calibrated(path, max_possible=3)
     assert v8_score_fused.launches == before + 4
+
+
+def _mc_inputs(dev, K, n_iter, seed):
+    """Normalised patches of a planted field and sampled 6-vectors, with
+    the edge cases of the g++ test: a constant patch, a NaN pixel, exact
+    ties (samples that differ only in sigma_w) and sigma_h = 0."""
+    from fluorosequencingimageanalysis_torch.ops import mc_fit
+    rng = np.random.default_rng(seed)
+    img = _planted(1, 256, 256, seed)[0]
+    hs = torch.from_numpy(rng.integers(2, 254, K).astype(np.int32))
+    ws = torch.from_numpy(rng.integers(2, 254, K).astype(np.int32))
+    patches = mc_fit.normalise_patches(gather_patches(img, hs, ws))
+    z = torch.from_numpy(rng.normal(size=(6, n_iter, K)).astype(np.float32))
+    samples = mc_fit.sample_params(patches, z).contiguous()
+    if K > 12 and n_iter > 3:
+        patches[0] = 0.0
+        patches[1, 2, 2] = float("nan")
+        samples[:5, :, 5:9] = samples[:5, :1, 5:9]
+        samples[4, 0, 9:11] = 0.0
+    return patches.to(dev), samples.to(dev)
+
+
+@pytest.mark.parametrize("K,n_iter", [(8192, 64), (4096, 200), (100, 37),
+                                      (1, 5)])
+def test_kernel_d_matches_twin(dev, K, n_iter):
+    """-fmad=false, pixel-order sums, correctly rounded quotients and the
+    card's expf on both sides: the best 6-vector and norm bit for bit."""
+    from fluorosequencingimageanalysis_torch.ops.fused_mc_fit import mc_fit
+    from fluorosequencingimageanalysis_torch.ops.mc_fit import mc_fit_plain
+    patches, samples = _mc_inputs(dev, K, n_iter, seed=K)
+    before = mc_fit.launches
+    got = mc_fit(patches, samples)
+    torch.cuda.synchronize()
+    assert mc_fit.launches == before + 1
+    want = mc_fit_plain(patches, samples)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    if K > 12:
+        assert torch.isinf(got[1][1]) and torch.equal(got[0][5:9, 5],
+                                                      samples[5, 0, 5:9])
+
+
+def test_kernel_d_rejects_what_it_does_not_take(dev):
+    from fluorosequencingimageanalysis_torch.ops.fused_mc_fit import mc_fit
+    patches, samples = _mc_inputs(dev, 64, 8, seed=0)
+    with pytest.raises(TypeError, match="float32"):
+        mc_fit(patches.double(), samples.double())
+    with pytest.raises(ValueError, match="share a device"):
+        mc_fit(patches, samples.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        mc_fit(patches, samples.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+def test_mc_detector_on_the_card_matches_cpu(dev):
+    """find_peptides(fit_type="monte_carlo") on the card: kernels A and D
+    run; on the same draws the card's candidates and keep mask equal the
+    CPU's (exp of the card and the CPU can split near-tied samples: each
+    different winner is a tie)."""
+    from fluorosequencingimageanalysis_torch.models import detect
+    from fluorosequencingimageanalysis_torch.ops.fused_mc_fit import mc_fit
+    img = _planted(1, 256, 256, seed=7)[0]
+    z = torch.randn((6, 300, 1024), generator=torch.Generator().manual_seed(
+        0))
+    kw = dict(max_candidates=1024, n_iter=300, normals=z)
+    a0, d0 = candidate_map_fused.launches, mc_fit.launches
+    card = detect._detect_and_fit_monte_carlo(img.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert (candidate_map_fused.launches, mc_fit.launches) == (a0 + 1,
+                                                               d0 + 1)
+    cpu = detect._detect_and_fit_monte_carlo(img, **kw)
+    for f in ("cand_h", "cand_w", "cand_valid", "cand_count"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    close = torch.isclose(card.params.cpu(), cpu.params, rtol=1e-5,
+                          atol=1e-5).all(dim=1)
+    assert close[cpu.cand_valid].float().mean() > 0.98
+    assert (card.keep.cpu() == cpu.keep).float().mean() > 0.99
+    psfs = detect.find_peptides(img.numpy(), fit_type="monte_carlo",
+                                N_iter=100, max_candidates=512)
+    assert len(psfs) > 10
+    assert mc_fit.launches == d0 + 2
+
+
+def test_simulation_on_the_card_matches_cpu(dev, monkeypatch):
+    """On identical draws (made on the host) the card's counts, loss cycles
+    and duds equal the CPU's; photometries agree to an ulp of the exponent;
+    the chained fit runs kernel C and counts every molecule."""
+    from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
+        v8_score_fused)
+    from fluorosequencingimageanalysis_torch.sim import dye_sim
+    seq, params = "ACKDYECAGKHSECAMKR", dict(p=0.9, b=0.105, u=0.5, s=0.3,
+                                              sc=4, s2=0.1)
+    N = 20_000
+    kw = dict(num_mocks=3, num_edmans=8, num_simulations=N, beta=70000.0,
+              beta_sigma=0.2, ddif=[0.0] + [0.3] * 6, **params)
+    host_sim, host_normals = dye_sim.draw_simulation, dye_sim.draw_normals
+    out = {}
+    with monkeypatch.context() as m:
+        m.setattr(dye_sim, "draw_simulation", lambda n, L, C, seed, device: (
+            dye_sim.SimDraws(*(t.to(device) for t in host_sim(
+                n, L, C, seed, "cpu")))))
+        m.setattr(dye_sim, "draw_normals", lambda shape, seed, device: (
+            host_normals(shape, seed, "cpu").to(device)))
+        for where in ("cuda", "cpu"):
+            out[where] = dye_sim.peptide_simulation_batched(
+                seq, {"C", "K"}, device=where, **kw)
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert g[:3] == w[:3]
+        for label in w[3]:
+            assert g[3][label][0] == w[3][label][0]
+            np.testing.assert_allclose(g[3][label][1][0], w[3][label][1][0],
+                                       rtol=2e-6)
+    before = v8_score_fused.launches
+    fit = dye_sim.simulate_and_fit_batched(seq, {"K"}, seed=1, **kw)
+    torch.cuda.synchronize()
+    assert v8_score_fused.launches == before + 1
+    assert sum(fit["signals"].values()) + fit["none_count"] == N

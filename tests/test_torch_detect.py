@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from fluorosequencingimageanalysis_tpu.models import detect as jax_detect
@@ -297,7 +298,7 @@ def test_psfs_from_arrays_on_shared_arrays_matches_jax():
     assert port_detect._psfs_from_arrays(img, idx[:0], *args[2:]) == {}
 
 
-def test_find_peptides_warns_and_raises(caplog):
+def test_find_peptides_warns_and_raises(caplog, monkeypatch):
     img = _field(8, 64, 64, n_spots=6)
     with caplog.at_level(logging.WARNING):
         port_detect.find_peptides(img, max_candidates=16, num_iters=3,
@@ -322,8 +323,20 @@ def test_find_peptides_warns_and_raises(caplog):
                                       device="cpu")
         with pytest.raises(ValueError, match="square"):
             jax_detect.find_peptides(img, correlation_matrix=bad)
-    with pytest.raises(NotImplementedError, match="monte_carlo"):
-        port_detect.find_peptides(img, fit_type="monte_carlo", device="cpu")
+    # fit_type="monte_carlo" runs: on the JAX package's draws its psfs are
+    # the JAX package's (tests/test_torch_mc_detect.py holds it in full).
+    kw = dict(fit_type="monte_carlo", N_iter=20, max_candidates=128,
+              rng_seed=1)
+    z = np.stack([np.asarray(jax.random.normal(k, (20, 128), jnp.float32))
+                  for k in jax.random.split(jax.random.PRNGKey(1), 6)])
+    monkeypatch.setattr(port_detect, "draw_mc_normals",
+                        lambda *a: torch.from_numpy(z))
+    got = port_detect.find_peptides(img, device="cpu", **kw)
+    want = jax_detect.find_peptides(img, **kw)
+    assert list(got) == list(want) and len(got) >= 4
+    for key in want:
+        np.testing.assert_allclose(got[key][:7], want[key][:7], rtol=1e-5,
+                                   atol=1e-5)
     with pytest.raises(ValueError, match="fit_type"):
         port_detect.find_peptides(img, fit_type="other", device="cpu")
     # The card is the default device: without one, the entry points raise.

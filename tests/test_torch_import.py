@@ -64,6 +64,12 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.pipeline.traces",
     "fluorosequencingimageanalysis_torch.pipeline.spots",
     "fluorosequencingimageanalysis_torch.pipeline.tracking",
+    "fluorosequencingimageanalysis_torch.sim",
+    "fluorosequencingimageanalysis_torch.sim.dye_sim",
+    "fluorosequencingimageanalysis_torch.native.randsiggen",
+    "fluorosequencingimageanalysis_torch.ops.mc_fit",
+    "fluorosequencingimageanalysis_torch.ops.fused_mc_fit",
+    "fluorosequencingimageanalysis_torch.tools.ab_mc_fit",
 ]
 
 
@@ -120,6 +126,17 @@ def test_port_imports_and_runs_with_jax_blocked():
         "assert fit[1] == 40 and sum(fit[0].values()) + fit[2] == 40\n"
         "cal = pipe.fluor_counts_calibrated(tracks, max_possible=2)\n"
         "assert cal[1] == 40 and cal[4]['beta'] > 0\n"
+        "from fluorosequencingimageanalysis_torch.sim.dye_sim import (\n"
+        "    simulate_and_fit_batched)\n"
+        "sim = simulate_and_fit_batched('ACKDYECAGK', {'K'}, 1, 4, 50,\n"
+        "    30000.0, 0.2, ddif=[0.0] + [0.3] * 6, p=0.9, b=0.1, u=0.3,\n"
+        "    device='cpu')\n"
+        "assert sum(sim['signals'].values()) + sim['none_count'] == 50\n"
+        "trie = pipe.simulate_signals({'P': (('AKCK', 'K'),)}, 0.9, 0.05,\n"
+        "    0.1, {'K': (1, 2, 3), 'C': (2,)}, sample_size=20)\n"
+        "assert list(trie.leaf_iterator())\n"
+        "assert find_peptides(frames[0], fit_type='monte_carlo', N_iter=8,\n"
+        "                     max_candidates=32, device='cpu')\n"
         "import pickle\n"
         "from fluorosequencingimageanalysis_torch.__main__ import main\n"
         "with tempfile.TemporaryDirectory() as tmp:\n"
@@ -161,7 +178,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                     assert not name.split(".")[0] in (
                         "jax", "jaxlib", "fluorosequencingimageanalysis_tpu"
                     ), (f, name)
-    assert seen >= 48
+    assert seen >= 55
     for name in _imported_names(os.path.join(REPO, "chip_smoke.py")):
         assert name.split(".")[0] not in (
             "jax", "fluorosequencingimageanalysis_tpu"), name
@@ -566,3 +583,45 @@ def test_failed_step_fit_core_builds_raise_without_fallback(tmp_path,
                        "chisqfit.cpp(.|\\n)*expected unqualified-id"):
         stepfitting.chi_squared_fit_batch(traces, num_steps=3)
     assert os.listdir(tmp_path / "_build") == []
+
+
+@pytest.mark.parametrize("rel", ["sim/proteome.py", "sim/trie.py",
+                                 "sim/signals.py", "sim/polyfluor.py",
+                                 "sim/events.py"])
+def test_copied_simulation_modules_are_the_jax_packages(rel):
+    """The host half of simulation is copied: every function and class is
+    the JAX package's statement for statement."""
+    got = _definitions(os.path.join(PORT_DIR, rel))
+    want = _definitions(os.path.join(
+        REPO, "fluorosequencingimageanalysis_tpu", rel))
+    assert sorted(got) == sorted(want) and len(got) >= 3
+    assert [n for n in got if got[n] != want[n]] == []
+
+
+def test_simulation_package_and_its_host_functions_are_the_jax_packages():
+    import fluorosequencingimageanalysis_tpu.sim as jax_sim
+    import fluorosequencingimageanalysis_torch.sim as port_sim
+    assert port_sim.__all__ == jax_sim.__all__
+    assert all(hasattr(port_sim, n) for n in port_sim.__all__)
+    jax_dir = os.path.join(REPO, "fluorosequencingimageanalysis_tpu")
+    for rel, names in [("sim/dye_sim.py", ["decrements_from_loss_cycles"]),
+                       ("models/detect.py", ["_mc_fit_image"])]:
+        got = _definitions(os.path.join(PORT_DIR, rel))
+        want = _definitions(os.path.join(jax_dir, rel))
+        for n in names:
+            assert got[n] == want[n], (rel, n)
+
+
+def test_randsiggen_source_is_the_jax_packages():
+    """The port builds its own copy of the native signal sampler: the same
+    code line for line (one comment names the reference file without a
+    machine path), with the host flags."""
+    with open(os.path.join(PORT_DIR, "csrc", "randsiggen.cpp")) as f:
+        port_src = f.read()
+    with open(os.path.join(REPO, "fluorosequencingimageanalysis_tpu",
+                           "native", "randsiggen.cpp")) as f:
+        jax_src = f.read()
+    assert _without_comments(port_src) == _without_comments(jax_src)
+    assert len(port_src.splitlines()) == len(jax_src.splitlines()) > 200
+    assert _build.flags("randsiggen") == _build.HOST_FLAGS
+
