@@ -65,9 +65,19 @@ trie, frame 0 of config 2 through ``find_peptides(fit_type=
 D against its twin bit for bit, beside its bound; the card against the CPU
 on identical draws), and the ``simulate`` subcommand in a process of its
 own.
+Then the remaining batched fitters: config 5's traces as per-cycle
+photometries (100,000 x 12, OFF frames drawn from N(2,000, 300^2)) through
+kernel E against its twin (G = 12, N = 100,000, k 2-6, 10 restarts, 100
+rounds: model by model after 3 rounds, the restarts and the BIC-selected k
+after 100, beside its bound), ``Pipeline(device="cuda").per_cycle_gmm``
+(wall, stage split, peak memory, launches, k per cycle), the plateau
+fitter's float64 device scores against its exact host scores on 20,000
+ladders, the device chi-squared engine against the native core on config
+3's chi-squared set, and the four entry points on the card against the
+CPU on 2,000 x 6.
 ``--phases`` names the groups to run, of headline, experiment, zstack,
-timetrace, fluor and sim (default: all, in that order); the kernel summary
-then lists the kernels those groups drove.
+timetrace, fluor, sim and mixtures (default: all, in that order); the
+kernel summary then lists the kernels those groups drove.
 ``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
 run_experiment, and a cProfile of one group's host half. Prints one
@@ -97,10 +107,11 @@ F, C, HW = 8, 4, 512
 MAX_CANDIDATES, NUM_ITERS, UPSAMPLE = 2048, 40, 20
 B_CENTER, B_R2, B_RMSE_REL, B_MODEL = 1e-3, 1e-4, 1e-4, 1e-3
 SWEEP = [(48, 100), (33, 257), (70, 130), (96, 384)]
-KERNELS = ("candidate_map", "fit_quality", "v8_score", "mc_fit")
+KERNELS = ("candidate_map", "fit_quality", "v8_score", "mc_fit", "gmm_em")
 HOST_CORES = ("tracklink", "stepchain", "chisqfit", "trackcsv", "randsiggen")
 # Groups of phases, in the order they run; --phases names a subset.
-PHASES = ("headline", "experiment", "zstack", "timetrace", "fluor", "sim")
+PHASES = ("headline", "experiment", "zstack", "timetrace", "fluor", "sim",
+          "mixtures")
 # Config 4 (bench.py's experiment workload): fields, cycles, candidate and
 # spot buckets, timed runs after one warm-up.
 EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
@@ -163,6 +174,31 @@ SIM_CPU_N, SIM_FIT_TWO_STEP, SIM_SIGNALS, CLI_SIM_N = (20_000, 20_000,
 # the planted-spot distance reported; the card against the CPU on a crop.
 MC_N_ITER, MC_K, MC_WITHIN_PX = 1000, 8192, 1.5
 MC_CPU_HW, MC_CPU_K, MC_CPU_ITER = 256, 2048, 200
+# The mixtures group: config 5's traces as per-cycle photometries
+# (make_gmm_photometries) through the per-cycle mixture fit at the
+# reference's defaults (MCsimlib.py:3307: 1-5 fluors, so k = 2-6 components,
+# 10 restarts, 100 EM rounds), timed calls after one warm-up; kernel E
+# against its twin after 3 rounds, model by model, at the CPU parity tests'
+# tolerances (log-likelihood relative, means, weights, variances relative
+# or of the second moment: the sums run in another order), and after
+# n_iter rounds a restart may differ only where the twin's own
+# log-likelihoods of the two tie within E_TIE_REL (unconverged float32 EM
+# restarts end that close); the plateau fitter at config 5's CSV size; the
+# card against the CPU on a small set.
+GMM_T, GMM_F, GMM_KS, GMM_N_INIT, GMM_N_ITER, GMM_REPS = (
+    100_000, 12, (2, 3, 4, 5, 6), 10, 100, 3)
+E_LL_REL, E_MEAN_ABS, E_W_ABS, E_VAR_REL, E_VAR_OF_MOMENT = (
+    1e-5, 1e-3, 1e-3, 1e-3, 1e-5)
+E_TIE_REL = 1e-3
+PL_T, PL_DROPS = 20_000, 3
+MIX_SMALL_T, MIX_SMALL_F = 2_000, 6
+# Kernel E's work a point, model and pass, from _em_batched's arithmetic
+# (an FMA counts 2): per active component the difference, its scaled
+# square, the log-probability, the maximum, the shifted exponent, the sum,
+# the responsibility and the three statistics (13); per model the
+# log-sum-exp's add and the log-likelihood's sum (2). Special-function
+# operations: one exp per active component and one log per model.
+E_OPS_PER_COMPONENT, E_OPS_PER_MODEL = 13, 2
 # Kernel D, per pixel and sample, from csrc/mc_fit.cuh (an FMA counts 2):
 # the row and column squares amortised (0.8), a + b (1), the quotient (a
 # multiply and two FMAs: 5), the exp (1), A * e + H (2), the maximum (1),
@@ -182,6 +218,10 @@ CARD_CPU_RMSE_REL, CARD_CPU_RMSE_OF_AMPLITUDE = 1e-3, 1e-4
 # Published peaks of one H100 SXM at its 700 W limit: float32 outside the
 # tensor cores (an FMA counts 2) and HBM3 bandwidth.
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+# Special-function operations (exp2, log2, reciprocal): 16 a clock on each
+# of the 132 SMs (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) at the 1.98 GHz behind 67 TFLOP/s.
+PEAK_SFU_OPS = 132 * 16 * 1.98e9
 # Operations each kernel's function needs, counted from its arithmetic.
 # Kernel A, per pixel: the median (csrc/median25.cuh: 174 min/max),
 # mf = x - min(med, x) (2), 25 taps (25 FMAs = 50) and the clamp (1).
@@ -2056,6 +2096,405 @@ def sim_phases(tmpl, dev, ptxas):
                         "candidate_map": {"mc_detect": a_numbers}}}
 
 
+def bound_e(groups_n, ks, n_init, n_iter, nbytes):
+    """Kernel E's least time (ms) and what sets it: bytes over the memory
+    rate, float32 operations over the float32 rate, or special-function
+    operations (the k exps and one log a point, model and pass) over the
+    special-function rate, whichever is longest. The work is counted over
+    each group's valid points, each model's active components and
+    ``n_iter`` + 1 passes."""
+    passes = n_iter + 1
+    comps = sum(ks) * n_init                 # active components a group
+    models = len(ks) * n_init
+    points = float(sum(groups_n))
+    f32 = passes * points * (E_OPS_PER_COMPONENT * comps +
+                             E_OPS_PER_MODEL * models)
+    sfu = passes * points * (comps + models)
+    times = {"bytes": nbytes / PEAK_BYTES_S * 1e3,
+             "float32": f32 / PEAK_F32_FLOPS * 1e3,
+             "special_function": sfu / PEAK_SFU_OPS * 1e3}
+    by = max(times, key=times.get)
+    return times[by], ("bytes" if by == "bytes" else "operations"), by, \
+        {"float32_ops": f32, "special_function_ops": sfu, "times_ms": times}
+
+
+def sklearn_selection(GaussianMixture, small, card_scores, dev):
+    """The BIC-selected k against scikit-learn's kmeans-seeded selection:
+    per cycle of the small photometries (reported: the ladder's levels
+    overlap, and sklearn's seeding reaches optima that the batched EM's
+    quantile seeding, the JAX package's, may not), and over the JAX
+    package's sweep of 18 seeded mixtures (tests/test_gmm_batch.py:
+    test_bic_model_selection_agreement_sweep, gated as there: at most 2
+    different selections, each where sklearn's own BICs of the two tie
+    within 0.1%)."""
+    from fluorosequencingimageanalysis_torch.inference.gmm import (
+        _collect_raw)
+    from fluorosequencingimageanalysis_torch.ops.gmm_batch import (
+        gmm_fit_batched)
+
+    def sk_bics(x, ks, n_init, seed):
+        X = x.reshape(-1, 1)
+        return np.array([GaussianMixture(
+            n_components=k, n_init=n_init, max_iter=GMM_N_ITER,
+            random_state=seed).fit(X).bic(X) for k in ks])
+
+    ks = list(GMM_KS)
+    per_cycle = []
+    for c, (_, nf, _, _) in sorted(card_scores.items()):
+        bics = sk_bics(np.asarray(_collect_raw(small, c), np.float64), ks,
+                       GMM_N_INIT, 0)
+        per_cycle.append({"k": nf + 1, "sklearn_k": ks[int(bics.argmin())],
+                          "sklearn_bic_margin": float(
+                              (bics[ks.index(nf + 1)] - bics.min()) /
+                              abs(bics.min()))})
+    rng = np.random.default_rng(7)
+    ks, flips = [1, 2, 3, 4], []
+    for trial in range(18):
+        true_k = int(rng.integers(1, 4))
+        sep = rng.uniform(2.2, 6.0)
+        means = np.cumsum(rng.uniform(sep, sep + 2, true_k)) * 1000.0
+        sigmas = rng.uniform(300.0, 500.0, true_k)
+        counts = rng.integers(400, 1400, true_k)
+        x = np.concatenate([rng.normal(m, s, n)
+                            for m, s, n in zip(means, sigmas, counts)])
+        res = gmm_fit_batched([x], ks, n_init=4, n_iter=GMM_N_ITER,
+                              seed=trial, device=dev)
+        ours = ks[int(res["bic"][0].argmin())]
+        bics = sk_bics(x, ks, 4, trial)
+        if ours != ks[int(bics.argmin())]:
+            flips.append({"trial": trial, "k": ours,
+                          "sklearn_k": ks[int(bics.argmin())],
+                          "margin": float(abs(bics[ks.index(ours)] -
+                                              bics.min()) / abs(bics.min()))})
+    check(len(flips) <= 2 and all(f["margin"] < 1e-3 for f in flips),
+          f"BIC selection against sklearn over the sweep: {flips}")
+    return {"available": True, "per_cycle": per_cycle, "sweep_trials": 18,
+            "sweep_flips": flips}
+
+
+def mixtures_phases(dev, ptxas):
+    """The remaining batched fitters on the card: kernel E against its twin
+    at the reference's full per-cycle mixture fit, ``Pipeline.per_cycle_gmm``
+    on config 5's photometries, the batched plateau fitter's device scores
+    against its exact host scores, the device chi-squared engine against
+    the native core, and the four entry points on the card against the
+    CPU. Emits the "gmm_em", "per_cycle_gmm", "plateau_device",
+    "chisq_device" and "mixtures_card_vs_cpu" lines; returns kernel E's
+    launches per ``per_cycle_gmm`` call and its numbers."""
+    from fluorosequencingimageanalysis_torch import stepfitting as sf
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.inference.gmm import (
+        _collect_raw, gmm_photometries_batched)
+    from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import gmm_em
+    from fluorosequencingimageanalysis_torch.ops.plateau_batch import (
+        _all_scores, _segmentations, all_plateau_fits_batched,
+        plateau_fit_batched)
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_chisq_traces, make_gmm_photometries, make_v8_workload)
+
+    ks, n_init, n_iter, reg = list(GMM_KS), GMM_N_INIT, GMM_N_ITER, 1e-6
+    G, J = GMM_F, len(ks)
+
+    # -- gmm_em: kernel E against its twin, both on the card, on the
+    # standardised cycles and starts that per_cycle_gmm builds.
+    phot = make_gmm_photometries(GMM_T, GMM_F)
+    groups = [np.asarray(_collect_raw(phot, c), np.float64)
+              for c in range(G)]
+    n_valid = np.array([g.size for g in groups])
+    z, _, _, starts = gb.prepare(groups, ks, n_init, 0, 2048)
+    zt = torch.from_numpy(z).to(dev)
+    counts = torch.from_numpy(n_valid.astype(np.int32)).to(dev)
+    st = [torch.from_numpy(a).to(dev) for a in starts]
+    valid = (torch.arange(z.shape[1], device=dev)[None, :] <
+             counts[:, None].long()).float()
+    act = starts[3]
+
+    def host(out):
+        return [t.double().cpu().numpy() for t in out]
+
+    def twin_timed(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = gb._em_plain(zt, valid, *st, rounds, reg)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    # Three rounds, model by model: the stated tolerances of the CPU
+    # parity tests (the sums run in another order than the twin's).
+    g3 = host(gmm_em(zt, counts, *st, 3, reg))
+    w3 = host(gb._em_plain(zt, valid, *st, 3, reg))
+    moment = w3[1] ** 2 + w3[2]
+    per_model3 = {
+        "loglik_rel": float((np.abs(g3[3] - w3[3]) / np.abs(w3[3])).max()),
+        "mean_abs": float(np.abs(g3[1] - w3[1])[act].max()),
+        "weight_abs": float(np.abs(g3[0] - w3[0]).max()),
+        "var_rel": float((np.abs(g3[2] - w3[2]) / w3[2])[act].max())}
+    var_ok = (np.abs(g3[2] - w3[2]) <= np.maximum(
+        E_VAR_REL * w3[2], E_VAR_OF_MOMENT * moment))[act].all()
+    check(per_model3["loglik_rel"] <= E_LL_REL and
+          per_model3["mean_abs"] <= E_MEAN_ABS and
+          per_model3["weight_abs"] <= E_W_ABS and var_ok,
+          f"kernel E vs twin after 3 rounds, model by model: {per_model3}")
+    # The full fit: n_iter rounds, against the twin and against the twin
+    # with its sums in chunks of half the size (what reordering float32
+    # sums alone does to n_iter rounds of EM).
+    got = host(gmm_em(zt, counts, *st, n_iter, reg))
+    again = host(gmm_em(zt, counts, *st, n_iter, reg))
+    repeats = all(np.array_equal(a, b) for a, b in zip(got, again))
+    want_t, twin_first = twin_timed(n_iter)
+    want = host(want_t)
+    del want_t
+    _, twin_second = twin_timed(n_iter)
+    reordered = host(gb._em_plain(zt, valid, *st, n_iter, reg, chunk=1024))
+    pen = np.array([3 * k - 1 for k in ks]) * np.log(n_valid)[:, None]
+
+    def against_twin(r):
+        """Per-model differences from the twin, the (group, k) pairs whose
+        best restart differs with the twin's gap between the two, the
+        BIC-selected k per group."""
+        ll_r, ll_t = (a[3].reshape(G, J, n_init) for a in (r, want))
+        pick_r, best_t = ll_r.argmax(-1), ll_t.max(-1)
+        twin_of_pick = np.take_along_axis(ll_t, pick_r[..., None],
+                                          -1)[..., 0]
+        flips = [{"group": int(g), "k": ks[j],
+                  "restart": int(pick_r[g, j]),
+                  "twin_restart": int(ll_t[g, j].argmax()),
+                  "twin_gap_rel": float(abs(best_t[g, j] -
+                                            twin_of_pick[g, j]) /
+                                        abs(best_t[g, j]))}
+                 for g, j in np.argwhere(pick_r != ll_t.argmax(-1))]
+        return {"loglik_rel": float((np.abs(r[3] - want[3]) /
+                                     np.abs(want[3])).max()),
+                "mean_abs": float(np.abs(r[1] - want[1])[act].max()),
+                "weight_abs": float(np.abs(r[0] - want[0]).max()),
+                "best_loglik_rel": float((np.abs(ll_r.max(-1) - best_t) /
+                                          np.abs(best_t)).max()),
+                "restart_flips": len(flips),
+                "max_flip_gap_rel": max((f["twin_gap_rel"] for f in flips),
+                                        default=0.0),
+                "k": [ks[j] for j in (-2 * ll_r.max(-1) + pen).argmin(1)],
+                "flips": flips}
+
+    kern = against_twin(got)
+    floor = against_twin(reordered)
+    k_twin = [ks[j] for j in (-2 * want[3].reshape(G, J, n_init).max(-1)
+                              + pen).argmin(1)]
+    # After n_iter rounds a model's likelihood may differ from the twin's
+    # by what reordering the twin's own sums moves it (twice that: it is
+    # the twin's spread, the kernel's order is a third), or E_TIE_REL; a
+    # restart may differ where the twin's likelihoods of the two tie
+    # within as much.
+    tie = max(E_TIE_REL, 2 * floor["loglik_rel"])
+    e_ms = time_ms(lambda: gmm_em(zt, counts, *st, n_iter, reg), 5)
+    e_med = statistics.median(e_ms)
+    e_bytes = zt.numel() * 4 + counts.numel() * 4 + sum(
+        t.numel() * t.element_size() for t in st) + 3 * st[0].numel() * 4 \
+        + G * J * n_init * 4
+    e_bound, e_by, e_type, e_work = bound_e(n_valid, ks, n_init, n_iter,
+                                            e_bytes)
+    e_numbers = {"shape": {"G": G, "N": int(n_valid.max()), "B": J * n_init,
+                           "K": max(ks), "n_iter": n_iter},
+                 "max_abs_err": kern["mean_abs"], "ms": e_med,
+                 "plain_ms": statistics.median([twin_first, twin_second]),
+                 "bound_ms": e_bound, "bound_by": e_by,
+                 "share_of_bound": e_bound / e_med}
+    emit("gmm_em", **e_numbers, bound_type=e_type, **e_work,
+         **ptxas["gmm_em"], ms_runs=e_ms,
+         plain_ms_runs=[twin_first, twin_second],
+         per_model_after_3_rounds=per_model3, after_n_iter=kern,
+         twin_reordered_after_n_iter=floor, k_twin=k_twin,
+         flip_tie_rel=tie, repeats_bit_for_bit=repeats,
+         note="means and weights on the standardised scale; max_abs_err "
+              "is the largest |delta mean| after n_iter rounds; "
+              "twin_reordered: the twin with E-step chunks of 1024 "
+              "against the twin's 2048")
+    check(repeats, "kernel E repeats bit for bit")
+    check(kern["k"] == k_twin, f"BIC-selected k per group: kernel "
+                               f"{kern['k']}, twin {k_twin}")
+    check(kern["loglik_rel"] <= tie,
+          f"after {n_iter} rounds each model's log-likelihood within {tie} "
+          f"of the twin's: {kern['loglik_rel']}")
+    check(kern["max_flip_gap_rel"] <= tie,
+          f"a restart differs only at a near-tie of the twin's own "
+          f"likelihoods (within {tie}): {kern['flips']}")
+    del zt, valid, st
+
+    # -- per_cycle_gmm: the user's entry point, kernel E once a call.
+    pipe = Pipeline(device=dev, profile=True)
+    pipe.per_cycle_gmm(phot)
+    runs = []
+    for _ in range(GMM_REPS):
+        profiling.reset_timings()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gmm_em.launches = 0
+        t = time.perf_counter()
+        scores, fits, raw = pipe.per_cycle_gmm(phot)
+        torch.cuda.synchronize()
+        runs.append({
+            "wall_s": time.perf_counter() - t,
+            "launches": {"gmm_em": gmm_em.launches},
+            "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+            "stages_s": {k: v["total"] for k, v in
+                         profiling.timings().items()}})
+    check(all(r["launches"] == {"gmm_em": 1} for r in runs),
+          f"one launch of kernel E a per_cycle_gmm call: {runs}")
+    k_pipe = [scores[c][1] + 1 for c in range(G)]
+    check(sorted(scores) == list(range(G)) and all(
+        np.isfinite(scores[c][2]) and len(fits[c]) == J and
+        np.isfinite(np.ravel(scores[c][0].means_)).all() and
+        len(raw[c]) == GMM_T for c in range(G)),
+        "a finite fit, BIC and J models for each of the 12 cycles")
+    check(k_pipe == kern["k"], f"per_cycle_gmm's k per cycle {k_pipe} is "
+                               f"the kernel's {kern['k']}")
+    walls = [r["wall_s"] for r in runs]
+    emit("per_cycle_gmm", traces=GMM_T, cycles=G, ks=ks, n_init=n_init,
+         n_iter=n_iter, wall_s_median=statistics.median(walls), runs=runs,
+         k_per_cycle=k_pipe,
+         cycle0_means=sorted(float(m) for m in
+                             np.ravel(scores[0][0].means_)),
+         launches_note="1 launch of kernel E a call: the n_iter rounds and "
+                       "the final log-likelihood pass are one kernel")
+    sk_line = {"available": False}
+    try:
+        from sklearn.mixture import GaussianMixture
+    except ImportError:
+        GaussianMixture = None
+        print("mixtures: scikit-learn is not importable here; the BIC "
+              "selection against sklearn is skipped", flush=True)
+
+    # -- plateau_device: config 5's CSV size through the plateau fitter.
+    x = make_v8_workload(PL_T, seed=1)[0]
+    t = time.perf_counter()
+    exact = plateau_fit_batched(x, PL_DROPS, scores="exact")
+    exact_s = time.perf_counter() - t
+    plateau_fit_batched(x[:256], PL_DROPS, scores="device", device=dev)
+    t = time.perf_counter()
+    on_dev = plateau_fit_batched(x, PL_DROPS, scores="device", device=dev)
+    device_s = time.perf_counter() - t
+    r2_e, _, ok_e = _all_scores(x, x.shape[1], PL_DROPS, "exact")
+    r2_d, _, ok_d = _all_scores(x, x.shape[1], PL_DROPS, "device",
+                                device=dev)
+    finite = np.isfinite(r2_e)
+    check(np.array_equal(finite, np.isfinite(r2_d)),
+          "the device scores are finite where the exact ones are")
+    max_dr2 = float(np.abs(r2_e - r2_d)[finite].max())
+    table = _segmentations(x.shape[1], PL_DROPS)[0]
+    combos = {c: i for i, c in enumerate(table)}
+
+    def combo(fit):
+        return combos[tuple(np.cumsum([0] + [len(p) for p in fit])[:-1]
+                            .tolist())]
+
+    # A downstep flag may differ only where two adjacent segment means tie.
+    flag_gap = 0.0
+    for i, c in np.argwhere(ok_e != ok_d):
+        bounds = list(table[c]) + [x.shape[1]]
+        means = [np.mean(x[i, lo:hi]) for lo, hi in zip(bounds[:-1],
+                                                         bounds[1:])]
+        flag_gap = max(flag_gap, min(
+            abs(p - q) / max(abs(p), abs(q), 1.0)
+            for p, q in zip(means[:-1], means[1:])))
+    differ = []
+    for i, (a, b) in enumerate(zip(exact, on_dev)):
+        if a[0] != b[0] or a[1] != b[1]:
+            gap = float(abs(r2_e[i, combo(a[0])] - r2_e[i, combo(b[0])]))
+            differ.append({"trace": i, "score_gap": gap,
+                           "margin": min(gap, abs(gap - 0.05)),
+                           "r2": [a[1], b[1]]})
+    emit("plateau_device", traces=PL_T, cycles=x.shape[1],
+         max_num_drops=PL_DROPS, exact_wall_s=exact_s,
+         device_wall_s=device_s, differing_selections=len(differ),
+         max_margin=max((d["margin"] for d in differ), default=0.0),
+         score_gaps=collections.Counter(str(d["score_gap"])
+                                        for d in differ),
+         differing=differ[:10], max_abs_r2_err=max_dr2,
+         downstep_flags_differing=int((ok_e != ok_d).sum()),
+         downstep_flags_max_mean_gap=flag_gap,
+         note="margin: the exact scores' gap between the two selections, "
+              "or its distance from delta_r_2 (0.05); OFF frames are "
+              "exact zeros, so segmentations that split them tie")
+    check(max_dr2 <= 1e-12, f"float64 device r^2 within 1e-12: {max_dr2}")
+    check(all(d["margin"] <= 1e-9 for d in differ),
+          f"selections differ only at near-ties: {differ}")
+    check(flag_gap <= 1e-12, f"downstep flags differ only at tied segment "
+                             f"means: {flag_gap}")
+
+    # -- chisq_device: config 3's chi-squared set, device engine.
+    chi = make_chisq_traces(CHI_N, CHI_T)
+    t = time.perf_counter()
+    native = sf.chi_squared_fit_batch(chi, num_steps=CHI_STEPS)
+    native_s = time.perf_counter() - t
+    sf.chi_squared_fit_batch(chi[:64], num_steps=CHI_STEPS, engine="device",
+                             device=dev)
+    t = time.perf_counter()
+    on_card = sf.chi_squared_fit_batch(chi, num_steps=CHI_STEPS,
+                                       engine="device", device=dev)
+    card_s = time.perf_counter() - t
+    chi_differ = sum(not same_plateaus(a, b)
+                     for a, b in zip(native, on_card))
+    check(chi_differ == 0, f"device engine = native core on every trace "
+                           f"({chi_differ} differ)")
+    emit("chisq_device", shape=[CHI_N, CHI_T], num_steps=CHI_STEPS,
+         native_wall_s=native_s, device_wall_s=card_s,
+         native_traces_per_s=CHI_N / native_s,
+         device_traces_per_s=CHI_N / card_s, differing_traces=chi_differ)
+
+    # -- mixtures_card_vs_cpu: the four entry points on a small set.
+    small = make_gmm_photometries(MIX_SMALL_T, MIX_SMALL_F, seed=1)
+    cmp = {}
+    card, cpu = (Pipeline(device=d).per_cycle_gmm(small) for d in
+                 (dev, "cpu"))
+    cmp["per_cycle_gmm_k"] = [[card[0][c][1] for c in range(MIX_SMALL_F)],
+                              [cpu[0][c][1] for c in range(MIX_SMALL_F)]]
+    cmp["per_cycle_gmm_bic_rel"] = max(
+        abs(card[0][c][2] - cpu[0][c][2]) / abs(cpu[0][c][2])
+        for c in range(MIX_SMALL_F))
+    one = [gmm_photometries_batched(small, cycle=0, device=d)
+           for d in (dev, "cpu")]
+    cmp["gmm_photometries_k"] = [one[0][2], one[1][2]]
+    cmp["gmm_photometries_bic_rel"] = abs(one[0][3] - one[1][3]) / abs(
+        one[1][3])
+    ladders = np.array([v[1] for fdict in small["ch1"].values()
+                        for v in fdict.values()])
+    pl = [plateau_fit_batched(ladders, PL_DROPS, scores="device", device=d)
+          for d in (dev, "cpu")]
+    cmp["plateau_fits_differing"] = sum(a[0] != b[0] for a, b in zip(*pl))
+    cmp["plateau_r2_max_abs"] = max(abs(a[1] - b[1]) for a, b in zip(*pl))
+    allp = [all_plateau_fits_batched(ladders[:200], PL_DROPS,
+                                     scores="device", device=d)
+            for d in (dev, "cpu")]
+    cmp["all_plateau_fits_equal"] = all(
+        [f[0] for f in a] == [f[0] for f in b] and np.allclose(
+            [f[1:] for f in a], [f[1:] for f in b], rtol=0, atol=1e-12,
+            equal_nan=True)
+        for a, b in zip(*allp))
+    traces = make_chisq_traces(MIX_SMALL_T, 60, seed=2)
+    chis = [sf.chi_squared_fit_batch(traces, num_steps=8, engine="device",
+                                     device=d) for d in (dev, "cpu")]
+    cmp["chisq_differing"] = sum(not same_plateaus(a, b)
+                                 for a, b in zip(*chis))
+    check(cmp["per_cycle_gmm_k"][0] == cmp["per_cycle_gmm_k"][1] and
+          cmp["per_cycle_gmm_bic_rel"] <= 1e-3 and
+          cmp["gmm_photometries_k"][0] == cmp["gmm_photometries_k"][1] and
+          cmp["gmm_photometries_bic_rel"] <= 1e-3 and
+          cmp["plateau_fits_differing"] == 0 and
+          cmp["plateau_r2_max_abs"] <= 1e-12 and
+          cmp["all_plateau_fits_equal"] and cmp["chisq_differing"] == 0,
+          f"the mixture fitters on the card against the CPU: {cmp}")
+    if GaussianMixture is not None:
+        sk_line = sklearn_selection(GaussianMixture, small, card[0], dev)
+    emit("mixtures_card_vs_cpu", traces=MIX_SMALL_T, cycles=MIX_SMALL_F,
+         chisq_shape=[MIX_SMALL_T, 60], **cmp, sklearn=sk_line)
+    return {"launches": {"per_cycle_gmm": runs[0]["launches"]},
+            "kernels": {"gmm_em": e_numbers}}
+
+
 def headline_phases(tmpl, dev, ptxas, profile=False):
     """Kernels A and B against their twins at the headline shapes, the
     experiment step through ``Pipeline(device="cuda").run_stack``, the card
@@ -2375,6 +2814,8 @@ def main():
             dev, ptxas, done.get("experiment", {}).get("track_csv"))
     if "sim" in phases:  # simulation and the Monte-Carlo detector
         done["sim"] = sim_phases(tmpl, dev, ptxas)
+    if "mixtures" in phases:  # the per-cycle mixtures and batched fitters
+        done["mixtures"] = mixtures_phases(dev, ptxas)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_summary(done, ptxas)}), flush=True)
@@ -2388,7 +2829,7 @@ def kernel_summary(done, ptxas):
     numbers of kernels A and B are the headline step's (or, where that
     group did not run, the first path's that did); each other path's
     launches and numbers follow under its own name. No single PyTorch call
-    computes any of the four functions: ``library_ms`` is null (kernel
+    computes any of the five functions: ``library_ms`` is null (kernel
     C's nearest composition of library calls is timed beside it as
     ``matmul_composition_ms``)."""
     meta = {
@@ -2404,6 +2845,9 @@ def kernel_summary(done, ptxas):
         "mc_fit": (
             "fluorosequencingimageanalysis_torch/csrc/mc_fit.cu",
             "fluorosequencingimageanalysis_tpu/models/detect.py:762"),
+        "gmm_em": (
+            "fluorosequencingimageanalysis_torch/csrc/gmm_em.cu",
+            "fluorosequencingimageanalysis_tpu/ops/gmm_batch.py:54"),
     }
     # {kernel: [(path, launches, numbers), ...]} in the order of the run.
     paths = {name: [] for name in meta}
@@ -2433,6 +2877,11 @@ def kernel_summary(done, ptxas):
             paths[name].append(("mc_detect",
                                 g["launches"]["mc_detect"][name],
                                 g["kernels"][name]["mc_detect"]))
+    if "mixtures" in done:
+        g = done["mixtures"]
+        paths["gmm_em"].append((
+            "per_cycle_gmm", g["launches"]["per_cycle_gmm"]["gmm_em"],
+            g["kernels"]["gmm_em"]))
     out = []
     for name, (source, replaces) in meta.items():
         if not paths[name]:
@@ -2444,19 +2893,20 @@ def kernel_summary(done, ptxas):
                                         "bound_ms", "bound_by")},
                  "library_ms": None, "share_of_bound": top["share_of_bound"],
                  **ptxas[name]}
-        if name in ("v8_score", "mc_fit"):
+        if name in ("v8_score", "mc_fit", "gmm_em"):
             entry.update({k: v for k, v in top.items() if k not in entry})
         if "experiment" in done and name in ("candidate_map", "fit_quality"):
             entry["launches_experiment"] = \
                 done["experiment"]["launches"][name]
             entry["experiment"] = done["experiment"]["kernels"][name]
-        for group in ("zstack", "timetrace", "fluor", "sim"):
+        for group in ("zstack", "timetrace", "fluor", "sim", "mixtures"):
             if group not in done:
                 continue
             for path, n in done[group]["launches"].items():
                 if name in n:
                     entry["launches_" + path] = n[name]
-            if group != "fluor" and name in done[group]["kernels"]:
+            if group not in ("fluor", "mixtures") and \
+                    name in done[group]["kernels"]:
                 entry.update(done[group]["kernels"][name])
         out.append(entry)
     return out

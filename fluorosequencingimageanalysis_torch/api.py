@@ -3,7 +3,8 @@
 Counterpart of fluorosequencingimageanalysis_tpu/api.py ``Pipeline``'s
 ``run_stack``, ``run_zstack``, ``run_experiment``, ``run_timetrace``,
 ``run_timetraces``, ``run_files``, ``stepfit``, ``chi_squared_stepfit``,
-``fluor_counts`` and ``fluor_counts_calibrated``, on one device, with its
+``fluor_counts``, ``fluor_counts_calibrated``, ``per_cycle_gmm`` and
+``simulate_signals``, on one device, with its
 content-hash artifact store (utils/checkpoint.py). The JAX Pipeline's mesh
 padding has no counterpart.
 
@@ -1281,6 +1282,23 @@ class Pipeline:
                        "original_beta": float(original_beta),
                        "original_beta_sigma": float(original_bs)}
         return signals, total, none_count, fit_info, calibration
+
+    def per_cycle_gmm(self, photometries, min_fluors=1, max_fluors=5,
+                      n_init=10, n_iter=100, cycles=None, lower_bound=None,
+                      seed=0):
+        """BIC-selected per-cycle intensity GMMs, every (cycle,
+        component-count, restart) model fitted in ONE launch of kernel E
+        (ops/gmm_batch.py) on this Pipeline's device: the reference's
+        nested Pool fan-out (_per_cycle_gmm_MP, MCsimlib.py:3307-3375) in
+        one dispatch. Returns (all_fit_scores, all_fits, raw_photometries)
+        in the reference's structure, with BatchedGMM1D fits
+        (means_/covars_/weights_/bic)."""
+        from .inference.gmm import per_cycle_gmm_batched
+        with self._stage("api/per_cycle_gmm"):
+            return per_cycle_gmm_batched(
+                photometries, min_fluors=min_fluors, max_fluors=max_fluors,
+                n_init=n_init, n_iter=n_iter, cycles=cycles,
+                lower_bound=lower_bound, seed=seed, device=self.device)
 
     # -- simulation ----------------------------------------------------------
 

@@ -243,19 +243,20 @@ def chi_squared_step_fitter(luminosity_sequence, num_steps_multiplier=1,
 def chi_squared_fit_batch(traces, num_steps_multiplier=1, num_steps=None,
                           min_step_length=2, min_step_magnitude=0.0,
                           ignore_counterfits=False, n_threads=None,
-                          engine=None):
+                          engine=None, device="cuda"):
     """Batched Kerssemakers chi-squared fitter over an (N, T) trace stack.
 
-    Per-trace results are bit-equal to :func:`chi_squared_step_fitter`
+    ``engine``: None or "native" run the native C++ core
+    (csrc/chisqfit.cpp, built with g++ at first use; a failed build
+    raises, there is no Python fallback): host work, threaded over the
+    batch, per-trace results bit-equal to :func:`chi_squared_step_fitter`
     (the host oracle, itself the exact port of
-    stepfitting_library.py:342-505). The chain is sequential per trace but
-    independent across traces, so the native C++ core (csrc/chisqfit.cpp)
-    threads the batch. It is host work: nothing here touches a device.
-
-    ``engine``: None or "native" run the C++ core (built with g++ at first
-    use; a failed build raises, there is no Python fallback). "device"
-    names the JAX package's jitted [N, T] program, which the port does not
-    have: it raises NotImplementedError (ROADMAP.md Queue 1 item 18).
+    stepfitting_library.py:342-505). "device" runs the [N, T] float64
+    program of ops/chisq_batch_device.py on ``device`` ("cuda" unless the
+    caller passes "cpu"): equal in exact arithmetic, it may differ from the
+    oracle only on last-ulp-tied split decisions; heights are the host's
+    exact np.mean either way. The ``num_steps = T - 1`` edge, which the
+    device program excludes, runs on the native core whatever the engine.
 
     Returns a list of N step fits (each a list of (start, stop, height)
     plateau triples).
@@ -274,11 +275,7 @@ def chi_squared_fit_batch(traces, num_steps_multiplier=1, num_steps=None,
                          str(num_steps))
     if T < 2:
         raise ValueError("chi-squared fitting needs at least 2 frames")
-    if engine == "device":
-        raise NotImplementedError(
-            "the device chi-squared engine (ops/chisq_batch_device.py of the "
-            "JAX package) is not ported: ROADMAP.md Queue 1 item 18")
-    if engine not in (None, "native"):
+    if engine not in (None, "native", "device"):
         raise ValueError(f"engine must be None, 'native' or 'device' (got "
                          f"{engine!r})")
     if num_steps is None:
@@ -286,6 +283,12 @@ def chi_squared_fit_batch(traces, num_steps_multiplier=1, num_steps=None,
     num_plateaus = num_steps + 1
     if N == 0:
         return []
+    if engine == "device" and num_steps <= T - 2:
+        from .ops.chisq_batch_device import chi_squared_fit_device
+        return chi_squared_fit_device(
+            traces, num_steps=num_steps, min_step_length=min_step_length,
+            min_step_magnitude=min_step_magnitude,
+            ignore_counterfits=ignore_counterfits, device=device)
     from .native import chisqfit as _ncf
 
     n, start, stop, height = _ncf.chisq_fit_batch_native(

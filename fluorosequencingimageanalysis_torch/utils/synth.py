@@ -344,3 +344,25 @@ def make_v8_workload(T, F=12, K=5, beta=30000.0, beta_sigma=0.2, seed=0):
     categories = counts > 0
     lfm = np.log(beta * np.arange(1, K + 1))
     return intensities, categories, lfm
+
+
+def make_gmm_photometries(T, F=12, K=5, off_mean=2000.0, off_sigma=300.0,
+                          rows_per_field=1000, seed=0):
+    """A photometries dict {"ch1": {field: {(h, w): (categories,
+    intensities, row)}}} of T traces of F cycles: ``make_v8_workload``'s
+    fluor-count ladders, each OFF frame drawn from N(off_mean,
+    off_sigma^2) instead of an exact 0 (exact zeros would collapse a
+    mixture component onto the variance floor), ``rows_per_field`` traces
+    a field. The per-cycle mixture fit's input (``Pipeline.per_cycle_gmm``);
+    the OFF draws come from one generator seeded with ``seed``."""
+    intensities, categories, _ = make_v8_workload(T, F=F, K=K, seed=seed)
+    rng = np.random.default_rng(seed)
+    off = rng.normal(off_mean, off_sigma, (T, F))
+    intensities = np.where(categories, intensities, off)
+    photometries = {"ch1": {}}
+    for t in range(T):
+        field, row = divmod(t, rows_per_field)
+        photometries["ch1"].setdefault(field, {})[(row, field)] = (
+            tuple(categories[t].tolist()), tuple(intensities[t].tolist()),
+            t)
+    return photometries

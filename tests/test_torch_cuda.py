@@ -589,3 +589,124 @@ def test_simulation_on_the_card_matches_cpu(dev, monkeypatch):
     torch.cuda.synchronize()
     assert v8_score_fused.launches == before + 1
     assert sum(fit["signals"].values()) + fit["none_count"] == N
+
+
+def _em_inputs(dev, sizes, ks, n_init, seed):
+    """Standardised, padded (G, N) mixtures of well-separated clusters (a
+    group of each size in ``sizes``) and the JAX package's restart starts,
+    on ``dev``."""
+    from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
+    rng = np.random.default_rng(seed)
+    groups = []
+    for n in sizes:
+        centres = np.arange(4) * 10.0 + rng.normal(0, 1, 4)
+        groups.append(rng.normal(centres[rng.integers(0, 4, n)],
+                                 rng.uniform(0.5, 1.0)))
+    N = -(-max(sizes) // 2048) * 2048
+    z = np.zeros((len(sizes), N), np.float32)
+    for g, x in enumerate(groups):
+        z[g, :x.size] = (x - x.mean()) / x.std()
+    counts = np.array(sizes, np.int32)
+    starts = gb._init_params([z[g] for g in range(len(sizes))], counts, ks,
+                             n_init, max(ks), np.random.default_rng(seed))
+    return [torch.from_numpy(a).to(dev) for a in (z, counts, *starts)]
+
+
+@pytest.mark.parametrize("sizes,ks,n_init", [
+    ((1000, 777, 50), [1], 4),                 # K = 1, ragged N
+    ((5000, 3001), [2, 3, 4], 3),              # ragged, several ks
+    ((20000,) * 12, [2, 3, 4, 5, 6], 10)])     # the smoke's model count
+def test_kernel_e_matches_twin(dev, sizes, ks, n_init):
+    """Three EM rounds: per model the log-likelihood within 1e-5 relative,
+    means and weights within 1e-3, variances within 1e-3 relative (or
+    1e-5 of mu^2 + var); the sums run in another order than the twin's.
+    A hundred rounds: the BIC-selected k of every group equal and each
+    (group, k)'s best log-likelihood within 1e-3 relative; a restart may
+    differ only where the twin's own likelihoods of the two tie within
+    1e-3 (the float32 EM's restarts end that close after 100 unconverged
+    rounds, in the JAX package as here). Two launches repeat bit for bit.
+    """
+    from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import gmm_em
+    z, counts, w0, mu0, var0, mask = _em_inputs(dev, sizes, ks, n_init,
+                                                 seed=len(sizes))
+    valid = (torch.arange(z.shape[1], device=dev)[None, :]
+             < counts[:, None].long()).float()
+    before = gmm_em.launches
+    got = gmm_em(z, counts, w0, mu0, var0, mask, 3, 1e-6)
+    torch.cuda.synchronize()
+    assert gmm_em.launches == before + 1
+    want = gb._em_plain(z, valid, w0, mu0, var0, mask, 3, 1e-6)
+    g, w = ([t.double().cpu().numpy() for t in r] for r in (got, want))
+    act = mask.cpu().numpy()
+    assert (np.abs(g[3] - w[3]) <= 1e-5 * np.abs(w[3])).all()
+    assert (np.abs(g[1] - w[1])[act] <= 1e-3).all()
+    assert (np.abs(g[0] - w[0]) <= 1e-3).all()
+    assert (np.abs(g[2] - w[2])[act] <= np.maximum(
+        1e-3 * w[2], 1e-5 * (w[1] ** 2 + w[2]))[act]).all()
+    assert (g[0][~act] == 0).all() and (g[2][~act] == 1).all()
+
+    got = gmm_em(z, counts, w0, mu0, var0, mask, 100, 1e-6)
+    again = gmm_em(z, counts, w0, mu0, var0, mask, 100, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = gb._em_plain(z, valid, w0, mu0, var0, mask, 100, 1e-6)
+    G, J = len(sizes), len(ks)
+    ll_g, ll_w = (r[3].double().cpu().numpy().reshape(G, J, n_init)
+                  for r in (got, want))
+    best_g, best_w = ll_g.max(-1), ll_w.max(-1)
+    assert (np.abs(best_g - best_w) <= 1e-3 * np.abs(best_w)).all()
+    pen = np.array([3 * k - 1 for k in ks]) * np.log(sizes)[:, None]
+    assert ((-2 * best_g + pen).argmin(1) ==
+            (-2 * best_w + pen).argmin(1)).all()
+    pick = ll_g.argmax(-1)
+    twin_of_pick = np.take_along_axis(ll_w, pick[..., None], -1)[..., 0]
+    assert (np.abs(twin_of_pick - best_w) <= 1e-3 * np.abs(best_w)).all()
+
+
+def test_kernel_e_rejects_what_it_does_not_take(dev):
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import gmm_em
+    z, counts, w0, mu0, var0, mask = _em_inputs(dev, (100, 90), [2, 3], 2,
+                                                 seed=0)
+    with pytest.raises(TypeError, match="float32"):
+        gmm_em(z.double(), counts, w0, mu0, var0, mask, 1, 1e-6)
+    with pytest.raises(TypeError, match="int32"):
+        gmm_em(z, counts.long(), w0, mu0, var0, mask, 1, 1e-6)
+    with pytest.raises(ValueError, match="one device"):
+        gmm_em(z, counts.cpu(), w0, mu0, var0, mask, 1, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm_em(z, counts, w0.transpose(0, 1).contiguous().transpose(0, 1),
+               mu0, var0, mask, 1, 1e-6)
+    big = [t.repeat(1, 1, 3) for t in (w0, mu0, var0, mask)]  # K = 9
+    with pytest.raises(ValueError, match="1 to 8"):
+        gmm_em(z, counts, *big, 1, 1e-6)
+
+
+def test_mixture_fitters_on_the_card_match_cpu(dev):
+    """per_cycle_gmm through kernel E picks the CPU twin's k in every cycle;
+    the float64 device scorer and the device chi-squared engine give the
+    CPU's selections and plateaus."""
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import gmm_em
+    from fluorosequencingimageanalysis_torch.ops.plateau_batch import (
+        plateau_fit_batched)
+    from fluorosequencingimageanalysis_torch.stepfitting import (
+        chi_squared_fit_batch)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_chisq_traces, make_gmm_photometries)
+    phot = make_gmm_photometries(2000, F=6, seed=1)
+    before = gmm_em.launches
+    card = Pipeline(device="cuda").per_cycle_gmm(phot, max_fluors=4)
+    assert gmm_em.launches == before + 1
+    cpu = Pipeline(device="cpu").per_cycle_gmm(phot, max_fluors=4)
+    for cycle in range(6):
+        assert card[0][cycle][1] == cpu[0][cycle][1]
+        assert card[0][cycle][2] == pytest.approx(cpu[0][cycle][2],
+                                                  rel=1e-3)
+    x = np.array([v[1] for v in phot["ch1"][0].values()])[:500]
+    on_card = plateau_fit_batched(x, 3, scores="device")
+    on_cpu = plateau_fit_batched(x, 3, scores="device", device="cpu")
+    assert [f for f, _ in on_card] == [f for f, _ in on_cpu]
+    np.testing.assert_allclose([r for _, r in on_card],
+                               [r for _, r in on_cpu], rtol=0, atol=1e-12)
+    traces = make_chisq_traces(256, 60, seed=2)
+    assert chi_squared_fit_batch(traces, num_steps=8, engine="device") == \
+        chi_squared_fit_batch(traces, num_steps=8, engine="native")

@@ -70,6 +70,12 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.ops.mc_fit",
     "fluorosequencingimageanalysis_torch.ops.fused_mc_fit",
     "fluorosequencingimageanalysis_torch.tools.ab_mc_fit",
+    "fluorosequencingimageanalysis_torch.ops.gmm_batch",
+    "fluorosequencingimageanalysis_torch.ops.fused_gmm_em",
+    "fluorosequencingimageanalysis_torch.ops.plateau_batch",
+    "fluorosequencingimageanalysis_torch.ops.chisq_batch_device",
+    "fluorosequencingimageanalysis_torch.inference.gmm",
+    "fluorosequencingimageanalysis_torch.inference.lognormal_legacy",
 ]
 
 
@@ -137,6 +143,19 @@ def test_port_imports_and_runs_with_jax_blocked():
         "assert list(trie.leaf_iterator())\n"
         "assert find_peptides(frames[0], fit_type='monte_carlo', N_iter=8,\n"
         "                     max_candidates=32, device='cpu')\n"
+        "from fluorosequencingimageanalysis_torch.utils.synth import (\n"
+        "    make_gmm_photometries)\n"
+        "gmm = pipe.per_cycle_gmm(make_gmm_photometries(60, F=3),\n"
+        "                         max_fluors=2, n_init=2, n_iter=5)\n"
+        "assert sorted(gmm[0]) == [0, 1, 2]\n"
+        "from fluorosequencingimageanalysis_torch.ops.plateau_batch import (\n"
+        "    plateau_fit_batched)\n"
+        "assert len(plateau_fit_batched(traces[:, :8], 2, scores='device',\n"
+        "                               device='cpu')) == 6\n"
+        "from fluorosequencingimageanalysis_torch.stepfitting import (\n"
+        "    chi_squared_fit_batch)\n"
+        "assert len(chi_squared_fit_batch(traces, num_steps=4,\n"
+        "    engine='device', device='cpu')) == 6\n"
         "import pickle\n"
         "from fluorosequencingimageanalysis_torch.__main__ import main\n"
         "with tempfile.TemporaryDirectory() as tmp:\n"
@@ -178,7 +197,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                     assert not name.split(".")[0] in (
                         "jax", "jaxlib", "fluorosequencingimageanalysis_tpu"
                     ), (f, name)
-    assert seen >= 55
+    assert seen >= 61
     for name in _imported_names(os.path.join(REPO, "chip_smoke.py")):
         assert name.split(".")[0] not in (
             "jax", "fluorosequencingimageanalysis_tpu"), name
@@ -625,3 +644,112 @@ def test_randsiggen_source_is_the_jax_packages():
     assert len(port_src.splitlines()) == len(jax_src.splitlines()) > 200
     assert _build.flags("randsiggen") == _build.HOST_FLAGS
 
+
+
+def _drop(node, kinds):
+    """``node`` without the statements of ``kinds`` in any body."""
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if isinstance(body, list):
+            sub.body = [n for n in body if not isinstance(n, kinds)]
+    return node
+
+
+def _unwrap_stages(node):
+    """``node`` with every ``with profiling.stage(...):`` replaced by its
+    body (the port's stage timers around copied code)."""
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if not isinstance(body, list):
+            continue
+        out = []
+        for n in body:
+            if isinstance(n, ast.With) and all(
+                    isinstance(i.context_expr, ast.Call) and
+                    ast.unparse(i.context_expr.func) == "profiling.stage"
+                    for i in n.items):
+                out.extend(n.body)
+            else:
+                out.append(n)
+        sub.body = out
+    return node
+
+
+def _top_functions(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            for sub in ast.walk(node):
+                body = getattr(sub, "body", None)
+                if (isinstance(body, list) and body
+                        and isinstance(body[0], ast.Expr)
+                        and isinstance(getattr(body[0], "value", None),
+                                       ast.Constant)
+                        and isinstance(body[0].value.value, str)):
+                    sub.body = body[1:] or [ast.Pass()]
+            out[node.name] = node
+    return out, tree
+
+
+def _as_mesh(node):
+    """The JAX form of a port function whose ``device="cuda"`` argument was
+    the JAX package's ``mesh=None``."""
+    text = ast.dump(node).replace("device", "mesh")
+    return text.replace("Constant(value='cuda')", "Constant(value=None)")
+
+
+def test_mixture_modules_are_the_jax_packages():
+    """The host halves of the mixtures slice are copies: the legacy fitters
+    with no difference; inference/gmm.py but for the two functions that
+    import scikit-learn where they use it and the two whose ``mesh`` became
+    ``device`` (and gained stage timers); the plateau fitter's tables, host
+    scorer and public functions (those gained ``device``); the EM's
+    starts."""
+    jax_dir = os.path.join(REPO, "fluorosequencingimageanalysis_tpu")
+    got = _definitions(os.path.join(PORT_DIR, "inference",
+                                    "lognormal_legacy.py"))
+    want = _definitions(os.path.join(jax_dir, "inference",
+                                     "lognormal_legacy.py"))
+    assert sorted(got) == sorted(want) and len(got) >= 20
+    assert [n for n in got if got[n] != want[n]] == []
+
+    rel = os.path.join("inference", "gmm.py")
+    got, tree = _top_functions(os.path.join(PORT_DIR, rel))
+    want, _ = _top_functions(os.path.join(jax_dir, rel))
+    assert sorted(got) == sorted(want) and len(got) >= 20
+    differs = [n for n in got if ast.dump(got[n]) != ast.dump(want[n])]
+    assert differs == ["_fit_gmm", "gmm_photometries_batched",
+                       "per_cycle_gmm_batched", "_cluster_fit_2"]
+    for n in ("_fit_gmm", "_cluster_fit_2"):
+        imports = [ast.unparse(i) for i in ast.walk(got[n])
+                   if isinstance(i, ast.ImportFrom)]
+        assert all("sklearn" in i for i in imports) and imports
+        assert ast.dump(_drop(got[n], (ast.ImportFrom,))) == \
+            ast.dump(want[n])
+    for n in ("gmm_photometries_batched", "per_cycle_gmm_batched"):
+        assert _as_mesh(_unwrap_stages(got[n])) == ast.dump(want[n])
+    top = [a.name for a in tree.body if isinstance(a, ast.Import)
+           for a in a.names] + [a.module for a in tree.body
+                                if isinstance(a, ast.ImportFrom)]
+    assert not [m for m in top if m and m.split(".")[0] == "sklearn"]
+
+    rel = os.path.join("ops", "plateau_batch.py")
+    got, _ = _top_functions(os.path.join(PORT_DIR, rel))
+    want, _ = _top_functions(os.path.join(jax_dir, rel))
+    for n in ("_segmentations", "_combo_structure", "_scores_host"):
+        assert ast.dump(got[n]) == ast.dump(want[n]), n
+    for n in ("plateau_fit_batched", "all_plateau_fits_batched"):
+        node = got[n]
+        node.args.args = [a for a in node.args.args if a.arg != "device"]
+        node.args.defaults = node.args.defaults[:-1]
+        for call in ast.walk(node):
+            if isinstance(call, ast.Call):
+                call.keywords = [k for k in call.keywords
+                                 if k.arg != "device"]
+        assert ast.dump(node) == ast.dump(want[n]), n
+
+    rel = os.path.join("ops", "gmm_batch.py")
+    got, _ = _top_functions(os.path.join(PORT_DIR, rel))
+    want, _ = _top_functions(os.path.join(jax_dir, rel))
+    assert ast.dump(got["_init_params"]) == ast.dump(want["_init_params"])
