@@ -24,7 +24,17 @@ default), through ``Pipeline(device="cuda").run_experiment``: fields/s,
 its stages, the overlap of the step with host tracking, peak memory, the
 kernels' launches per run and both kernels against their twins at that
 path's shapes, the recovery of planted spots, both CSVs, and the card
-against the CPU on a reduced stack. Then the z-stack and single-image
+against the CPU on a reduced stack. Then the object layer (group
+``objects``): the reference's class path (tools/class_path.py: detection,
+``Image``/``Spot`` objects, ``SequenceExperiment`` registration, tracking,
+the discard of invalid traces and the track CSV) on config 4's first 8
+fields with the card as the default device: its rows against
+``run_experiment``'s on the same fields (keys, categories and order equal,
+photometry within rtol 1e-5, atol 1e-2), the card against the CPU on one
+field, kernels A and B launched by it (one each a field) and held against
+their twins at its shapes, the wall, its stage split and peak memory; and,
+where Pillow and imageio are installed, the compat image and experiment
+scripts on planted 512x512 tif files. Then the z-stack and single-image
 front doors: the background estimator against its float64 host oracle,
 config 2 (32 frames of 512x512 uint16, 800 persistent spots on a sloped,
 breathing background, max_candidates=8192, lean fetch of 2048 slots)
@@ -75,9 +85,9 @@ fitter's float64 device scores against its exact host scores on 20,000
 ladders, the device chi-squared engine against the native core on config
 3's chi-squared set, and the four entry points on the card against the
 CPU on 2,000 x 6.
-``--phases`` names the groups to run, of headline, experiment, zstack,
-timetrace, fluor, sim and mixtures (default: all, in that order); the
-kernel summary then lists the kernels those groups drove.
+``--phases`` names the groups to run, of headline, experiment, objects,
+zstack, timetrace, fluor, sim and mixtures (default: all, in that order);
+the kernel summary then lists the kernels those groups drove.
 ``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
 run_experiment, and a cProfile of one group's host half. Prints one
@@ -110,11 +120,19 @@ SWEEP = [(48, 100), (33, 257), (70, 130), (96, 384)]
 KERNELS = ("candidate_map", "fit_quality", "v8_score", "mc_fit", "gmm_em")
 HOST_CORES = ("tracklink", "stepchain", "chisqfit", "trackcsv", "randsiggen")
 # Groups of phases, in the order they run; --phases names a subset.
-PHASES = ("headline", "experiment", "zstack", "timetrace", "fluor", "sim",
-          "mixtures")
+PHASES = ("headline", "experiment", "objects", "zstack", "timetrace", "fluor",
+          "sim", "mixtures")
 # Config 4 (bench.py's experiment workload): fields, cycles, candidate and
 # spot buckets, timed runs after one warm-up.
 EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
+# The object layer's class path (the objects group): config 4's first
+# OBJ_F fields on the card, the first OBJ_CPU_F of them on the CPU too; its
+# rows against run_experiment's at the bound of
+# tests/test_fast_experiment.py; the compat apps on planted 512x512 tif
+# files of OBJ_APP_FIELDS fields x OBJ_APP_CYCLES cycles.
+OBJ_F, OBJ_CPU_F = 8, 1
+CLASS_RTOL, CLASS_ATOL = 1e-5, 1e-2
+OBJ_APP_FIELDS, OBJ_APP_CYCLES, OBJ_APP_HW, OBJ_APP_SPOTS = 2, 3, 512, 300
 # Card against CPU on a reduced experiment: 2 fields x 8 cycles of 256x256
 # at config 4's spot density.
 EXP_SMALL = dict(F=2, C=8, H=256, W=256, spots_per_field=500, seed=1)
@@ -626,6 +644,7 @@ def experiment_phase(tmpl, dev, profile_host=False):
         emit("experiment_profile", **prof)
     return {
         "launches": runs[0]["launches"], "track_csv": track_csv,
+        "stack": stack,
         "kernels": {
             "candidate_map": {
                 "shape": a_shape,
@@ -639,6 +658,272 @@ def experiment_phase(tmpl, dev, profile_host=False):
                 "ms": b["ms_median"], "plain_ms": b["plain_ms_median"],
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "share_of_bound": b["share_of_bound"]}}}
+
+
+def objects_phases(tmpl, dev, stack=None):
+    """The object layer's class path (tools/class_path.py: detection
+    through kernels A and B, registration, tracking, the batched
+    photometry, the track CSV) on config 4's first OBJ_F fields with the
+    card as the process default device: one warm-up field, then one timed
+    run (launch counts set to 0 just before it and read just after). Gate
+    1: its rows equal ``run_experiment``'s on the same fields. Gate 2: the
+    card equals the CPU on the first OBJ_CPU_F fields. Both kernels against
+    their twins at this path's shapes (one field's cycles). Emits the
+    "objects", "objects_card_vs_cpu" and "objects_apps" lines; returns the
+    kernels' launches and numbers. ``stack``: the experiment group's
+    config-4 stack, else made here."""
+    from fluorosequencingimageanalysis_torch import _device
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        _threshold_and_extract_batch)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused, candidate_map_plain)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.tools.class_path import (
+        class_path, read_rows)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_experiment_stack)
+
+    synth_s = 0.0
+    if stack is None:
+        t = time.perf_counter()
+        stack = np.clip(make_experiment_stack(EXP_F, EXP_C), 0,
+                        65535).astype(np.uint16)
+        synth_s = time.perf_counter() - t
+    stack = np.ascontiguousarray(stack[:OBJ_F])
+    F, C, H, W = stack.shape
+    n_iters = Pipeline(device=dev).config.detect.num_iters
+    _device.set_default_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        class_path(stack[:1], os.path.join(tmp, "warm.csv"),
+                   max_candidates=EXP_K)
+        warm_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        candidate_map_fused.launches = 0
+        fit_quality.launches = 0
+        t = time.perf_counter()
+        mfmc, stages = class_path(stack, os.path.join(tmp, "card.csv"),
+                                  max_candidates=EXP_K,
+                                  sync=torch.cuda.synchronize)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {"candidate_map": candidate_map_fused.launches,
+                    "fit_quality": fit_quality.launches}
+        peak = int(torch.cuda.max_memory_allocated())
+        check(launches == {"candidate_map": F, "fit_quality": F},
+              f"each field's detection launched both kernels once: "
+              f"{launches}")
+        header, rows = read_rows(os.path.join(tmp, "card.csv"))
+        check(header == ["CHANNEL", "FIELD", "H", "W", "CATEGORY"] +
+              [f"FRAME {i}" for i in range(C)] and len(rows) > 0 and
+              all(len(r) == 5 + C for r in rows),
+              "the class path's track CSV parses with its header")
+        values = np.array([[float(x) for x in r[5:]] for r in rows])
+        check(np.isfinite(values).all(), "every class-path photometry is "
+                                         "finite")
+        check(len({r[4] for r in rows}) > 2, "the rows hold more than two "
+                                             "categories")
+
+        # Gate 1: run_experiment on the same fields (one warm-up run).
+        pipe = Pipeline(device=dev)
+        kw = dict(max_candidates=EXP_K, max_spots=EXP_S)
+        pipe.run_experiment(stack, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pipe.run_experiment(stack, **kw)
+        torch.cuda.synchronize()
+        exp_wall = time.perf_counter() - t
+        fast = res["rows"]
+        check(len(fast) == len(rows), f"rows of the class path and "
+              f"run_experiment: {len(rows)}, {len(fast)}")
+        worst = 0.0
+        for i, ((ch, f, h, w, cat, ph), row) in enumerate(zip(fast, rows)):
+            check([str(ch), str(f), str(h), str(w), str(cat)] == row[:5],
+                  f"row {i}: run_experiment {(ch, f, h, w, cat)}, class "
+                  f"path {row[:5]}")
+            ph = np.asarray(ph, np.float64)
+            check(np.allclose(ph, values[i], rtol=CLASS_RTOL,
+                              atol=CLASS_ATOL),
+                  f"row {i} photometry: run_experiment {ph}, class path "
+                  f"{values[i]}")
+            worst = max(worst, float(np.abs(ph - values[i]).max()))
+
+        # Both kernels against their twins at this path's shapes.
+        imgs = torch.from_numpy(stack[0]).to(dev).to(torch.float32)
+        cm = candidate_map_fused(imgs, tmpl)
+        err_a = float((cm - candidate_map_plain(imgs, tmpl)).abs().max())
+        check(err_a == 0.0, f"kernel A vs twin at {tuple(imgs.shape)} "
+                            f"(max abs err {err_a})")
+        a_ms = time_ms(lambda: candidate_map_fused(imgs, tmpl), 10)
+        a_plain = time_ms(lambda: candidate_map_plain(imgs, tmpl), 3)
+        a_bound, a_by = bound(2 * imgs.numel() * 4,
+                              imgs.numel() * A_OPS_PER_PIXEL)
+        hs, ws, valid, _ = _threshold_and_extract_batch(cm, EXP_K, 2.0)
+        b = kernel_b_report(imgs, hs, ws, valid, n_iters, 1, reps=5,
+                            plain_reps=2)
+        del cm, imgs
+
+        # Gate 2: the card against the CPU on the first OBJ_CPU_F fields.
+        part = stack[:OBJ_CPU_F]
+        class_path(part, os.path.join(tmp, "card1.csv"),
+                   max_candidates=EXP_K)
+        _device.set_default_device("cpu")
+        t = time.perf_counter()
+        _, cpu_stages = class_path(part, os.path.join(tmp, "cpu1.csv"),
+                                   max_candidates=EXP_K)
+        cpu_s = time.perf_counter() - t
+        _device.set_default_device(dev)
+        card1 = read_rows(os.path.join(tmp, "card1.csv"))[1]
+        cpu1 = read_rows(os.path.join(tmp, "cpu1.csv"))[1]
+        check(len(card1) == len(cpu1) > 0, f"class-path rows on the card "
+              f"and the CPU: {len(card1)}, {len(cpu1)}")
+        worst_cpu = 0.0
+        for i, (g, c) in enumerate(zip(card1, cpu1)):
+            check(g[:5] == c[:5], f"row {i}: card {g[:5]}, CPU {c[:5]}")
+            gv = np.array([float(x) for x in g[5:]])
+            cv = np.array([float(x) for x in c[5:]])
+            check(np.allclose(gv, cv, rtol=PHOT_RTOL, atol=PHOT_ATOL),
+                  f"row {i} photometry: card {gv}, CPU {cv}")
+            worst_cpu = max(worst_cpu, float(np.abs(gv - cv).max()))
+    emit("objects", shape=[F, C, H, W], dtype=str(stack.dtype),
+         max_candidates=EXP_K, num_iters=n_iters, cut="config 4's 32 "
+         f"fields cut to the first {F}", synth_s=synth_s, warmup_s=warm_s,
+         wall_s=wall, wall_per_field_s=wall / F, stages_s=stages,
+         unnamed_s=wall - sum(v for k, v in stages.items()
+                              if k != "photometry"),
+         peak_mem_bytes=peak, launches=launches, rows=len(rows),
+         spot_count=mfmc.spot_count()["ch1"],
+         trace_count=mfmc.trace_count()["ch1"],
+         run_experiment_wall_s=exp_wall,
+         run_experiment_wall_per_field_s=exp_wall / F,
+         max_abs_phot_diff_vs_run_experiment=worst,
+         note="wall = the class path from a host uint16 stack to its "
+              "track CSV (one timed run after a one-field warm-up); "
+              "stages_s are host-clock stage totals, the device "
+              "synchronised at each stage's end; photometry is the part "
+              "of discard and csv inside Image's batched photometry; "
+              "run_experiment's wall is one run after one warm-up")
+    emit("objects_card_vs_cpu", shape=list(part.shape),
+         rows=len(cpu1), max_abs_phot_diff=worst_cpu, cpu_s=cpu_s,
+         cpu_stages_s=cpu_stages, cpu_threads=torch.get_num_threads())
+    objects_apps(dev)
+    _device.set_default_device(None)
+    return {
+        "launches": {"objects": launches},
+        "kernels": {
+            "candidate_map": {"objects": {
+                "shape": [C, H, W], "max_abs_err": err_a,
+                "ms": statistics.median(a_ms),
+                "plain_ms": statistics.median(a_plain), "bound_ms": a_bound,
+                "bound_by": a_by,
+                "share_of_bound": a_bound / statistics.median(a_ms)}},
+            "fit_quality": {"objects": {
+                "fits": b["fits"], "num_iters": n_iters,
+                "max_abs_err": b["max_abs_err_all_outputs"],
+                "ms": b["ms_median"], "plain_ms": b["plain_ms_median"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "share_of_bound": b["share_of_bound"]}}}}
+
+
+def objects_apps(dev):
+    """compat.basic_image_script and compat.basic_experiment_script on
+    planted 512x512 tif files (one directory a cycle, one file a field),
+    with ``--device`` naming the card; the experiment script reuses the
+    image script's psfs pickles, as the reference's flow does. Needs Pillow
+    (the apps write their PNGs with it): where it is missing the
+    "objects_apps" line says so and nothing runs. The apps read images with
+    imageio; where only imageio is missing, this phase reads the planted
+    tif files with Pillow in its place and the line names the reader."""
+    import contextlib
+    import glob
+    import importlib.util
+    import io
+    import pickle
+    if importlib.util.find_spec("PIL") is None:
+        emit("objects_apps", ran=False, missing=["PIL"],
+             note="the compat apps write their PNGs with Pillow, which "
+                  "this machine lacks")
+        return
+    from PIL import Image as PILImage
+
+    from fluorosequencingimageanalysis_torch.compat import (
+        basic_experiment_script, basic_image_script)
+    from fluorosequencingimageanalysis_torch.utils import (
+        imageio as port_imageio)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_experiment_stack)
+
+    def read_with_pillow(path):
+        with PILImage.open(path) as im:
+            return np.asarray(im)
+
+    reader, read_image_array = "imageio", port_imageio.read_image_array
+    if importlib.util.find_spec("imageio") is None:
+        port_imageio.read_image_array = read_with_pillow
+        reader = "Pillow (imageio is not installed here)"
+    stack = np.clip(make_experiment_stack(
+        OBJ_APP_FIELDS, OBJ_APP_CYCLES, OBJ_APP_HW, OBJ_APP_HW,
+        spots_per_field=OBJ_APP_SPOTS, seed=3), 0, 65535).astype(np.uint16)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for c in range(OBJ_APP_CYCLES):
+            d = os.path.join(tmp, "images", f"cycle_{c:02d}")
+            os.makedirs(d)
+            for f in range(OBJ_APP_FIELDS):
+                path = os.path.join(d, f"field_{f:02d}.tif")
+                PILImage.fromarray(stack[f, c]).save(path)
+                files.append(path)
+        out = os.path.join(tmp, "out")
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                t = time.perf_counter()
+                processed = basic_image_script.main(
+                    ["--device", str(dev), "-L",
+                     os.path.join(tmp, "i.log"), os.path.join(tmp, "images")])
+                image_s = time.perf_counter() - t
+                t = time.perf_counter()
+                mfmc = basic_experiment_script.main(
+                    ["--peptide_files", *files, "--output_directory", out,
+                     "--no_sanity_check_images", "--device", str(dev),
+                     "-L", os.path.join(tmp, "e.log")])
+                exp_s = time.perf_counter() - t
+        finally:
+            port_imageio.read_image_array = read_image_array
+        check(len(processed) == len(files), f"the image script processed "
+              f"{len(processed)} of {len(files)} images")
+        for path in files:
+            check(all(len(glob.glob(path + f"*_psfs_*.{ext}")) == 1
+                      for ext in ("pkl", "csv", "png")),
+                  f"psfs pkl, csv and png beside {path}")
+        with open(glob.glob(files[0] + "*_psfs_*.pkl")[0], "rb") as fh:
+            psfs = pickle.load(fh)
+        check(len(psfs) > 0.8 * OBJ_APP_SPOTS and
+              all(len(v) == 12 for v in psfs.values()),
+              f"the image script's psfs of {files[0]}: {len(psfs)} spots")
+        (track,) = glob.glob(os.path.join(
+            out, "track_photometries_NO_NONES_*.csv"))
+        with open(track, newline="") as fh:
+            table = list(csv.reader(fh))
+        check(len(table) > 1 and len(table[0]) == 5 + OBJ_APP_CYCLES,
+              f"the experiment script's track CSV: {len(table)} lines")
+        (offsets,) = glob.glob(os.path.join(out, "offsets_dict_*.pkl"))
+        with open(offsets, "rb") as fh:
+            by_frame = pickle.load(fh)
+        check(sorted(by_frame) == list(range(OBJ_APP_CYCLES)),
+              "the offsets dict holds every cycle")
+        check(glob.glob(os.path.join(out, "category_counts_*.csv")),
+              "the experiment script wrote its category counts")
+    emit("objects_apps", ran=True, reader=reader, images=len(files),
+         shape=[OBJ_APP_FIELDS, OBJ_APP_CYCLES, OBJ_APP_HW, OBJ_APP_HW],
+         spots_per_field=OBJ_APP_SPOTS, image_script_s=image_s,
+         experiment_script_s=exp_s, psfs_image0=len(psfs),
+         track_rows=len(table) - 1,
+         trace_count=mfmc.trace_count()["ch1"],
+         printed_lines=len(printed.getvalue().splitlines()))
 
 
 def psfs_card_vs_cpu(card, cpu, what):
@@ -2805,6 +3090,10 @@ def main():
     if "experiment" in phases:  # config 4
         done["experiment"] = experiment_phase(tmpl, dev,
                                               profile_host=args.profile)
+    if "objects" in phases:  # the class path on config 4's first fields
+        done["objects"] = objects_phases(
+            tmpl, dev, done.get("experiment", {}).pop("stack", None))
+    done.get("experiment", {}).pop("stack", None)
     if "zstack" in phases:  # config 2 and the single-image front door
         done["zstack"] = zstack_phases(tmpl, dev)
     if "timetrace" in phases:  # the movie and config 3
@@ -2860,7 +3149,8 @@ def kernel_summary(done, ptxas):
             e = done["experiment"]
             paths[name].append(("experiment", e["launches"][name],
                                 e["kernels"][name]))
-        for group, first in (("zstack", "zstack_group"),
+        for group, first in (("objects", "objects"),
+                             ("zstack", "zstack_group"),
                              ("timetrace", "timetrace")):
             if group in done:
                 g = done[group]
@@ -2899,7 +3189,8 @@ def kernel_summary(done, ptxas):
             entry["launches_experiment"] = \
                 done["experiment"]["launches"][name]
             entry["experiment"] = done["experiment"]["kernels"][name]
-        for group in ("zstack", "timetrace", "fluor", "sim", "mixtures"):
+        for group in ("objects", "zstack", "timetrace", "fluor", "sim",
+                      "mixtures"):
             if group not in done:
                 continue
             for path, n in done[group]["launches"].items():

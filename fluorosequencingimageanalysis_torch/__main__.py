@@ -53,10 +53,10 @@ import numpy as np
 
 def _load_stack(files):
     """files -> ([F, C, H, W] array, frame_count) via dir=cycle/file=field."""
-    from .pipeline.experiment import easy_sort_target_images
+    from .pipeline.experiment import Experiment
     from .utils.imageio import read_image_array
 
-    frame_indexed, field_indexed = easy_sort_target_images(files)
+    frame_indexed, field_indexed = Experiment.easy_sort_target_images(files)
     n_fields = {len(v) for v in frame_indexed.values()}
     if len(n_fields) != 1:
         raise SystemExit("every cycle directory must hold the same number "

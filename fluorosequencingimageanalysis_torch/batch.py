@@ -5,8 +5,10 @@ pflib's output writers and batch runners (pflib.py:594-711, 883-1111). The
 reference's multiprocessing fan-out (load-balanced by candidate counts,
 pflib.py:1000-1111) has no use on one device, so parallel_image_batch
 accepts num_processes for compatibility and batches the images through
-the device. Detection runs on the card unless ``find_peptides_parameters``
-names another ``device``.
+the device. Detection runs on the process default device
+(``_device.default_device()``: the card unless ``FSIA_TORCH_DEVICE`` or
+``set_default_device`` names another) unless ``find_peptides_parameters``
+names a ``device``.
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import default_device, resolve_device
 from ..ops.candidates import (DEFAULT_CORRELATION_MATRIX,
                               candidate_maps_batch, extract_candidates_chunk,
                               find_candidates, find_candidates_batch,
@@ -158,12 +158,12 @@ def unpack_spot_buckets(f32, ints, flags, spot_count, cand_count):
 def _as_images(images, device, dtype=np.float32):
     """A float image tensor on its device: tensors stay where they are
     (``device`` None) or move; arrays are cast to ``dtype`` on the host and
-    go to ``device`` (None = "cuda"). Integer tensors are cast to float32
-    on the device."""
+    go to ``device`` (None = ``_device.default_device()``, "cuda" unless
+    set otherwise). Integer tensors are cast to float32 on the device."""
     if isinstance(images, torch.Tensor):
         x = images if device is None else images.to(resolve_device(device))
         return x if x.is_floating_point() else x.to(torch.float32)
-    dev = resolve_device("cuda" if device is None else device)
+    dev = resolve_device(default_device() if device is None else device)
     host = np.ascontiguousarray(np.asarray(images).astype(dtype))
     return torch.from_numpy(host).to(dev)
 
@@ -300,7 +300,7 @@ def find_peptides(image, median_filter_size=5, correlation_matrix=None,
                   candidate_pixels=None, c_std=2, r_2_threshold=0.7,
                   consolidation_radius=4, fit_type="gauss", N_iter=10 ** 3,
                   max_candidates=None, num_iters=60, dtype=np.float32,
-                  rng_seed=0, device="cuda"):
+                  rng_seed=0, device=None):
     """Host-facing spot finder with the reference's output contract.
 
     Returns {(round(h_0), round(w_0)): (h_0, w_0, H, A, sigma_h, sigma_w,
@@ -311,7 +311,9 @@ def find_peptides(image, median_filter_size=5, correlation_matrix=None,
     max_candidates=None (the default) is exhaustive, like the reference:
     the chunked path fits every above-threshold candidate. An integer
     caps the bucket (one device program; a warning when the image exceeds
-    it). ``device``: where detection and the fits run.
+    it). ``device``: where detection and the fits run (None: the
+    process default, ``_device.default_device()``, "cuda" unless set
+    otherwise; a tensor image stays on its own device).
 
     fit_type='monte_carlo' is the reference's normalised random-search
     fitter (pflib.py:117-177) over candidates and ``N_iter`` samples drawn
@@ -503,13 +505,14 @@ def psfs_dicts_from_batch(images, keep, params, center_h, center_w,
 def find_peptides_batch(images, median_filter_size=5, correlation_matrix=None,
                         c_std=2, r_2_threshold=0.7, consolidation_radius=4,
                         max_candidates=None, num_iters=60, dtype=np.float32,
-                        device="cuda"):
+                        device=None):
     """find_peptides over a same-shape image stack in one device program.
     Returns a list of psfs dicts, one per image, equal to per-image
     find_peptides (fit_type='gauss').
 
     max_candidates=None (default) is exhaustive via the chunked path; an
     integer caps the per-image bucket with a warning on overflow.
+    ``device`` as in find_peptides.
     """
     if consolidation_radius < 2:
         raise ValueError("consolidation_radius must be at least 2")

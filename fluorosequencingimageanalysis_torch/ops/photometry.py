@@ -76,10 +76,17 @@ def simple_batch(image, hs, ws, radius=2):
         _flat_windows(image, hs, ws, radius))
 
 
-def maximum_batch(image, hs, ws, radius=5, top=1):
-    """Sum of the top-k pixels in each square."""
-    return patch_reduction("maximum", radius, top=top)(
-        _flat_windows(image, hs, ws, radius))
+def maximum_batch(image, hs, ws, radius=5, top=1, median_adjust=False):
+    """Sum of the top-k pixels in each square; with ``median_adjust`` each
+    pixel first less the median of its whole image (the reference's
+    additive background adjustment, flexlibrary.py:264-284). The median of
+    an even pixel count is the mean of the two middle values, as
+    ``jnp.median``'s (``torch.median`` would return the lower one)."""
+    flat = _flat_windows(image, hs, ws, radius)
+    if median_adjust:
+        med = _median(image.reshape(*image.shape[:-2], -1))
+        flat = flat - med[..., None, None]
+    return patch_reduction("maximum", radius, top=top)(flat)
 
 
 def luminosity_centroid_batch(image, hs, ws, radius=3, with_sn=True):
@@ -134,6 +141,13 @@ def simple_host(image, h, w, radius=2):
     return float(_clipped_square(image, h, w, radius).sum())
 
 
-def maximum_host(image, h, w, radius=5, top=1):
+def maximum_host(image, h, w, radius=5, top=1, background_adjust="none"):
     r = np.sort(_clipped_square(image, h, w, radius).ravel())
+    if background_adjust == "additive":
+        r = r - np.median(np.asarray(image))
+    elif background_adjust == "multiplicative":
+        raise NotImplementedError(
+            "Not sure what to do if median is 0. This may be a poor metric.")
+    elif background_adjust != "none":
+        raise ValueError(str(background_adjust) + " is not a valid option.")
     return float(np.sum(r[-top:]))

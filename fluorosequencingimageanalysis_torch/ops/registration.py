@@ -5,8 +5,8 @@ integer shift from the peak of the FFT cross-power, refined to
 1/upsample_factor px by an upsampled DFT evaluated as matrix products in a
 1.5 * upsample_factor neighbourhood. FFTs go through ``torch.fft``; the
 three small complex products of ``_dftups`` stay ``torch.matmul``, as the
-JAX package leaves them to XLA. Every function takes a batch of image
-pairs along leading axes.
+JAX package leaves them to XLA. Every function but the single-pair
+``phase_correlate`` takes a batch of image pairs along leading axes.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import math
 
 import numpy as np
 import torch
+
+from .._device import default_device, resolve_device
 
 
 def _complex_argmax(z):
@@ -121,6 +123,25 @@ def phase_correlate_jit(ref_image, reg_image, upsample_factor: int = 1):
     if mid_col == 1:
         col_shift = torch.zeros_like(col_shift)
     return row_shift, col_shift, error, diffphase
+
+
+def phase_correlate(ref_image, reg_image, upsample_factor: int = 1):
+    """Single-pair API with the reference's signature and return types
+    (phase_correlate.py:11-134): (row_shift, col_shift, error, diffphase)
+    as Python floats. Raises on mismatched or non-2D shapes like the
+    reference. The pair is registered in float64 on the process default
+    device (``_device.default_device()``)."""
+    ref_image = np.asarray(ref_image)
+    reg_image = np.asarray(reg_image)
+    if ref_image.shape != reg_image.shape:
+        raise ValueError("Error: images must be same size for phase_correlate")
+    if ref_image.ndim != 2:
+        raise ValueError("Error: phase_correlate only supports 2D images")
+    dev = resolve_device(default_device())
+    pair = torch.from_numpy(np.stack([ref_image, reg_image]).astype(
+        np.float64)).to(dev)
+    r, c, e, d = phase_correlate_jit(pair[0], pair[1], int(upsample_factor))
+    return float(r), float(c), float(e), float(d)
 
 
 def phase_correlate_stack(frames, upsample_factor: int = 20):

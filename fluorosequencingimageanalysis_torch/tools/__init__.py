@@ -1,1 +1,2 @@
-"""Measurement scripts for the port's kernels; each needs a CUDA card."""
+"""Measurement tools: the A/B of kernel D's block shape (needs a card)
+and the timed class path (``class_path``, on any device)."""

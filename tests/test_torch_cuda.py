@@ -710,3 +710,37 @@ def test_mixture_fitters_on_the_card_match_cpu(dev):
     traces = make_chisq_traces(256, 60, seed=2)
     assert chi_squared_fit_batch(traces, num_steps=8, engine="device") == \
         chi_squared_fit_batch(traces, num_steps=8, engine="native")
+
+
+def test_class_path_on_the_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The object layer's class path (detection through kernels A and B,
+    registration, tracking, the batched photometry, the track CSV) with
+    the card as the default device against the same path with the CPU's,
+    on 2 fields x 4 cycles of 128^2: equal keys, categories and order,
+    photometry within the card-vs-CPU bound of chip_smoke.py, and each
+    field's detection launched A and B once."""
+    from fluorosequencingimageanalysis_torch import _device
+    from fluorosequencingimageanalysis_torch.tools.class_path import (
+        class_path, read_rows)
+    monkeypatch.setattr(_device, "_DEFAULT", None)
+    stack = np.clip(make_experiment_stack(2, 4, 128, 128,
+                                          spots_per_field=30, seed=0),
+                    0, 65535).astype(np.uint16)
+    _device.set_default_device("cuda")
+    a0, b0 = candidate_map_fused.launches, fit_quality.launches
+    class_path(stack, tmp_path / "card.csv", max_candidates=512,
+               sync=torch.cuda.synchronize)
+    assert candidate_map_fused.launches - a0 == 2
+    assert fit_quality.launches - b0 == 2
+    _device.set_default_device("cpu")
+    class_path(stack, tmp_path / "cpu.csv", max_candidates=512)
+    assert candidate_map_fused.launches - a0 == 2  # the CPU takes twins
+    header, card = read_rows(tmp_path / "card.csv")
+    assert read_rows(tmp_path / "cpu.csv")[0] == header
+    cpu = read_rows(tmp_path / "cpu.csv")[1]
+    assert len(card) == len(cpu) > 20
+    for i, (g, c) in enumerate(zip(card, cpu)):
+        assert g[:5] == c[:5], (i, g[:5], c[:5])
+        np.testing.assert_allclose([float(x) for x in g[5:]],
+                                   [float(x) for x in c[5:]],
+                                   rtol=1e-4, atol=5e-2, err_msg=f"row {i}")

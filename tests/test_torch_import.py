@@ -76,7 +76,24 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.ops.chisq_batch_device",
     "fluorosequencingimageanalysis_torch.inference.gmm",
     "fluorosequencingimageanalysis_torch.inference.lognormal_legacy",
+    "fluorosequencingimageanalysis_torch.pipeline",
+    "fluorosequencingimageanalysis_torch.mpfit_compat",
+    "fluorosequencingimageanalysis_torch.plotting",
+    "fluorosequencingimageanalysis_torch.compat",
+    "fluorosequencingimageanalysis_torch.compat.pflib",
+    "fluorosequencingimageanalysis_torch.compat.flexlibrary",
+    "fluorosequencingimageanalysis_torch.compat.phase_correlate",
+    "fluorosequencingimageanalysis_torch.compat.stepfitting_library",
+    "fluorosequencingimageanalysis_torch.compat.mpfit",
+    "fluorosequencingimageanalysis_torch.compat.plotting",
+    "fluorosequencingimageanalysis_torch.compat.basic_image_script",
+    "fluorosequencingimageanalysis_torch.compat.basic_experiment_script",
+    "fluorosequencingimageanalysis_torch.compat.basic_timetrace_script",
 ]
+COMPAT_MODULES = ["pflib", "flexlibrary", "phase_correlate",
+                  "stepfitting_library", "mpfit", "plotting",
+                  "basic_image_script", "basic_experiment_script",
+                  "basic_timetrace_script"]
 
 
 def test_port_imports_and_runs_with_jax_blocked():
@@ -156,6 +173,17 @@ def test_port_imports_and_runs_with_jax_blocked():
         "    chi_squared_fit_batch)\n"
         "assert len(chi_squared_fit_batch(traces, num_steps=4,\n"
         "    engine='device', device='cpu')) == 6\n"
+        "from fluorosequencingimageanalysis_torch import _device\n"
+        "from fluorosequencingimageanalysis_torch.compat import (\n"
+        "    flexlibrary, pflib)\n"
+        "_device.set_default_device('cpu')\n"
+        "img = flexlibrary.Image(image=frames[0])\n"
+        "img.find_gaussian_psfs({'num_iters': 3})\n"
+        "assert img.spots and img.spots[0].photometry() is not None\n"
+        "ex = flexlibrary.SequenceExperiment([img, img],\n"
+        "                                    alignment_frames=[img, img])\n"
+        "assert ex.offsets_from_frames()[1] == (0.0, 0.0)\n"
+        "assert pflib._psf_candidates(frames[0])\n"
         "import pickle\n"
         "from fluorosequencingimageanalysis_torch.__main__ import main\n"
         "with tempfile.TemporaryDirectory() as tmp:\n"
@@ -187,17 +215,30 @@ def _imported_names(path):
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
-    seen = 0
+    seen = []
     for root, dirs, files in os.walk(PORT_DIR):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs only
         for f in files:
             if f.endswith(".py"):
-                seen += 1
+                seen.append(os.path.relpath(os.path.join(root, f), PORT_DIR))
                 for name in _imported_names(os.path.join(root, f)):
                     assert not name.split(".")[0] in (
                         "jax", "jaxlib", "fluorosequencingimageanalysis_tpu"
                     ), (f, name)
-    assert seen >= 61
+    assert len(seen) >= 74
+    # compat/ is walked too, and its modules import the port, never the
+    # repo's root shims (which import the JAX package).
+    assert {os.path.join("compat", m + ".py") for m in COMPAT_MODULES} <= \
+        set(seen)
+    for m in COMPAT_MODULES:
+        path = os.path.join(PORT_DIR, "compat", m + ".py")
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                assert not [a.name for a in node.names
+                            if a.name in COMPAT_MODULES], (m, a.name)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert node.module not in COMPAT_MODULES, (m, node.module)
     for name in _imported_names(os.path.join(REPO, "chip_smoke.py")):
         assert name.split(".")[0] not in (
             "jax", "fluorosequencingimageanalysis_tpu"), name
@@ -555,10 +596,10 @@ def test_timetrace_experiment_methods_are_the_jax_packages():
     got = methods(os.path.join(PORT_DIR, "pipeline", "experiment.py"))
     want = methods(os.path.join(REPO, "fluorosequencingimageanalysis_tpu",
                                 "pipeline", "experiment.py"))
-    assert sorted(got) == ["__init__", "_get_all_intermediates",
-                           "save_experiment_as_csv", "save_traces_pkl"]
-    for name in got:
-        assert got[name] == want[name], name
+    # The whole class now; only the batched step fit names its device.
+    assert sorted(got) == sorted(want) and len(got) >= 9
+    assert [n for n in got if got[n] != want[n]] == [
+        "_stepfit_tracks_batched"]
 
 
 def _without_comments(text):
@@ -753,3 +794,179 @@ def test_mixture_modules_are_the_jax_packages():
     got, _ = _top_functions(os.path.join(PORT_DIR, rel))
     want, _ = _top_functions(os.path.join(jax_dir, rel))
     assert ast.dump(got["_init_params"]) == ast.dump(want["_init_params"])
+
+
+def _class_methods(path, cls):
+    """{name: AST dump} of the methods of class ``cls``, docstrings apart."""
+    tree = ast.parse(open(path).read(), filename=path)
+    node = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+                and n.name == cls)
+    out = {}
+    for m in node.body:
+        if isinstance(m, ast.FunctionDef):
+            _strip_docstrings(m)
+            out[m.name] = m
+    return out
+
+
+def _strip_docstrings(node):
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if (isinstance(body, list) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(getattr(body[0], "value", None), ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            sub.body = body[1:] or [ast.Pass()]
+    return node
+
+
+def _without_keyword(node, arg):
+    """``node`` with the keyword ``arg`` dropped from every call."""
+    for call in ast.walk(node):
+        if isinstance(call, ast.Call):
+            call.keywords = [k for k in call.keywords if k.arg != arg]
+    return node
+
+
+def test_object_layer_is_the_jax_packages():
+    """Spot, Image, the trackers and the experiment classes are host
+    copies: every class, method and function is the JAX package's
+    statement for statement, apart from the device calls (the batched
+    photometry and its upload, registration, the batched step fit), the
+    native tracker as the default, and one corrected error message."""
+    jax_dir = os.path.join(REPO, "fluorosequencingimageanalysis_tpu")
+
+    def both(rel):
+        return (_definitions(os.path.join(PORT_DIR, rel)),
+                _definitions(os.path.join(jax_dir, rel)))
+
+    got, want = both("pipeline/spots.py")
+    assert sorted(got) == sorted(want) and len(got) >= 10
+    assert [n for n in got if got[n] != want[n]] == ["Image"]
+    gm = _class_methods(os.path.join(PORT_DIR, "pipeline/spots.py"), "Image")
+    wm = _class_methods(os.path.join(jax_dir, "pipeline/spots.py"), "Image")
+    assert sorted(set(gm) - set(wm)) == ["__getstate__", "device_image"]
+    assert not set(wm) - set(gm)
+    # The cache measures only the spots it lacks; the batch runs on the
+    # device copy of the image (uploaded once) and is timed as a stage.
+    assert [n for n in wm if ast.dump(gm[n]) != ast.dump(wm[n])] == [
+        "_spot_photometry", "photometry_cache_clear",
+        "_compute_photometries"]
+    clear = gm["photometry_cache_clear"]
+    clear.body = clear.body[:-1]  # the device copies go too
+    assert ast.dump(clear) == ast.dump(wm["photometry_cache_clear"])
+
+    got, want = both("pipeline/tracking.py")
+    assert sorted(got) == sorted(want) and len(got) >= 10
+    assert [n for n in got if got[n] != want[n]] == [
+        "accumulate_offsets", "greedy_particle_tracking"]
+    assert got["accumulate_offsets"].replace("definition", "definiton") == \
+        want["accumulate_offsets"]
+    native = ast.parse("use_native = True").body[0]
+    jax_default = ast.parse(
+        "from ..native.tracklink import have_native\n"
+        "use_native = have_native()").body
+    assert got["greedy_particle_tracking"].replace(
+        ast.dump(native), ", ".join(ast.dump(n) for n in jax_default)) == \
+        want["greedy_particle_tracking"]
+
+    got, want = both("pipeline/experiment.py")
+    assert sorted(got) == sorted(want) and len(got) >= 8
+    assert [n for n in got if got[n] != want[n]] == [
+        "SequenceExperiment", "TimetraceExperiment"]
+    rel = "pipeline/experiment.py"
+    gm = _class_methods(os.path.join(PORT_DIR, rel), "SequenceExperiment")
+    wm = _class_methods(os.path.join(jax_dir, rel), "SequenceExperiment")
+    assert sorted(gm) == sorted(wm)
+    assert [n for n in gm if ast.dump(gm[n]) != ast.dump(wm[n])] == [
+        "offsets_from_frames"]
+    gm = _class_methods(os.path.join(PORT_DIR, rel), "TimetraceExperiment")
+    wm = _class_methods(os.path.join(jax_dir, rel), "TimetraceExperiment")
+    n = "_stepfit_tracks_batched"
+    assert ast.dump(_without_keyword(gm[n], "device")) == ast.dump(wm[n])
+
+    import fluorosequencingimageanalysis_tpu.pipeline as jax_pipeline
+    import fluorosequencingimageanalysis_torch.pipeline as port_pipeline
+    assert port_pipeline.__all__ == jax_pipeline.__all__
+    assert all(hasattr(port_pipeline, n) for n in port_pipeline.__all__)
+
+
+@pytest.mark.parametrize("rel", ["mpfit_compat.py", "plotting.py"])
+def test_mpfit_compat_and_plotting_are_the_jax_packages(rel):
+    """Host copies: module code statement for statement, docstrings
+    apart."""
+    assert _code_without_imports_and_docstrings(
+        os.path.join(PORT_DIR, rel)) == _code_without_imports_and_docstrings(
+        os.path.join(REPO, "fluorosequencingimageanalysis_tpu", rel))
+    assert len(_definitions(os.path.join(PORT_DIR, rel))) >= 3
+
+
+def _module_without(path, names):
+    """A module's AST without imports, docstrings and the top-level
+    definitions ``names``."""
+    tree = ast.parse(open(path).read(), filename=path)
+    tree.body = [n for n in tree.body
+                 if not (isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                         and n.name in names)]
+    _strip_docstrings(tree)
+    for sub in ast.walk(tree):
+        body = getattr(sub, "body", None)
+        if isinstance(body, list):
+            sub.body = [n for n in body
+                        if not isinstance(n, (ast.Import, ast.ImportFrom))]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name,differs", [
+    ("pflib", ["_psf_candidates", "_fit_2d_gaussian"]),
+    ("flexlibrary", []), ("phase_correlate", []),
+    ("stepfitting_library", []), ("mpfit", []), ("plotting", []),
+    ("basic_image_script", ["build_parser", "main"]),
+    ("basic_experiment_script", ["build_parser", "main"]),
+    ("basic_timetrace_script", ["build_parser", "main"])])
+def test_compat_modules_are_the_root_shims(name, differs):
+    """Each compat module is the repo's root module of that name with its
+    imports pointed at the port: the same code apart from imports and
+    docstrings, but for the two pflib functions that take their tensors to
+    the device, and the apps' ``--device`` (the parser gains it, ``main``
+    sets the default device from it). The parsers are held equal option
+    by option."""
+    port_path = os.path.join(PORT_DIR, "compat", name + ".py")
+    root_path = os.path.join(REPO, name + ".py")
+    assert _module_without(port_path, differs) == \
+        _module_without(root_path, differs)
+    if "main" not in differs:
+        return
+    trees = [ast.parse(open(p).read()) for p in (port_path, root_path)]
+    mains = [next(n for n in t.body if isinstance(n, ast.FunctionDef)
+                  and n.name == "main") for t in trees]
+    set_dev = [s for s in mains[0].body if isinstance(s, ast.Expr)
+               and ast.unparse(s) == "set_default_device(args.device)"]
+    assert len(set_dev) == 1
+    mains[0].body.remove(set_dev[0])
+    assert _module_without_node(mains[0]) == _module_without_node(mains[1])
+
+    import importlib
+    port_mod = importlib.import_module(
+        "fluorosequencingimageanalysis_torch.compat." + name)
+    root_mod = importlib.import_module(name)
+
+    def actions(parser):
+        return [(a.option_strings, a.dest, a.default, a.nargs, a.type,
+                 a.required, type(a).__name__) for a in parser._actions
+                if a.dest not in ("device", "log_path")]
+    assert actions(port_mod.build_parser()) == \
+        actions(root_mod.build_parser())
+    dev = [a for a in port_mod.build_parser()._actions if a.dest == "device"]
+    assert len(dev) == 1 and dev[0].option_strings == ["--device"]
+
+
+def _module_without_node(node):
+    """A function's AST dump without docstrings and imports."""
+    _strip_docstrings(node)
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if isinstance(body, list):
+            sub.body = [n for n in body
+                        if not isinstance(n, (ast.Import, ast.ImportFrom))]
+    return ast.dump(node)

@@ -549,8 +549,11 @@ def test_timetrace_experiment_container_matches_jax(tmp_path):
     with open(tmp_path / "t.pkl", "rb") as fh:
         back = pickle.load(fh)
     assert [t.trace for t in back] == [t.trace for t in tte.spot_traces]
-    for name in ("lc_create_traces", "stepfit_tracks"):
-        assert not hasattr(tte, name)  # they wait for the Spot classes
+    # The whole class is ported since the Spot classes are
+    # (tests/test_torch_objects.py drives the rest of it).
+    for name in ("lc_create_traces", "stepfit_tracks",
+                 "wildcolor_plot_tracks", "save_stepfits_as_csv"):
+        assert callable(getattr(tte, name)) and hasattr(ref, name)
 
 
 def test_read_track_photometries_csv_matches_jax(tmp_path):
