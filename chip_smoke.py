@@ -2471,7 +2471,8 @@ def mixtures_phases(dev, ptxas):
     from fluorosequencingimageanalysis_torch.inference.gmm import (
         _collect_raw, gmm_photometries_batched)
     from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
-    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import gmm_em
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import (
+        geometry, gmm_em)
     from fluorosequencingimageanalysis_torch.ops.plateau_batch import (
         _all_scores, _segmentations, all_plateau_fits_batched,
         plateau_fit_batched)
@@ -2582,6 +2583,7 @@ def mixtures_phases(dev, ptxas):
         + G * J * n_init * 4
     e_bound, e_by, e_type, e_work = bound_e(n_valid, ks, n_init, n_iter,
                                             e_bytes)
+    geo = geometry(G, zt.shape[1], J * n_init, max(ks))
     e_numbers = {"shape": {"G": G, "N": int(n_valid.max()), "B": J * n_init,
                            "K": max(ks), "n_iter": n_iter},
                  "max_abs_err": kern["mean_abs"], "ms": e_med,
@@ -2594,11 +2596,17 @@ def mixtures_phases(dev, ptxas):
          per_model_after_3_rounds=per_model3, after_n_iter=kern,
          twin_reordered_after_n_iter=floor, k_twin=k_twin,
          flip_tie_rel=tie, repeats_bit_for_bit=repeats,
+         warps_per_sm=geo["blocks_per_sm"] * geo["warps"], geometry=geo,
          note="means and weights on the standardised scale; max_abs_err "
               "is the largest |delta mean| after n_iter rounds; "
               "twin_reordered: the twin with E-step chunks of 1024 "
-              "against the twin's 2048")
+              "against the twin's 2048; geometry: subsets of each group's "
+              "models, blocks a cluster (each a slice of the group's "
+              "points), warps a block, points a staged tile, blocks an SM "
+              "and clusters the card holds at once (occupancy API)")
     check(repeats, "kernel E repeats bit for bit")
+    check(ptxas["gmm_em"]["spill_bytes"] == 0,
+          f"kernel E spills no registers: {ptxas['gmm_em']}")
     check(kern["k"] == k_twin, f"BIC-selected k per group: kernel "
                                f"{kern['k']}, twin {k_twin}")
     check(kern["loglik_rel"] <= tie,

@@ -38,6 +38,10 @@ from ..utils import profiling
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _NEG = -1e30  # log-weight of an inactive component
+# float32 constants of csrc/gmm_em.cuh: log2(e), 0.5 * log2(e), log(2).
+_LOG2E = float(np.float32(1.4426950408889634))
+_HALF_LOG2E = float(np.float32(0.5 * 1.4426950408889634))
+_LN2 = float(np.float32(0.6931471805599453))
 
 
 def _log_weights(w, comp_mask, log=torch.log):
@@ -50,29 +54,32 @@ def _log_constants(w, var, comp_mask, log=torch.log):
     return _log_weights(w, comp_mask, log) - 0.5 * (log(var) + _LOG_2PI)
 
 
-def responsibilities(z, cst, mu, var, exp=torch.exp, log=torch.log):
+def responsibilities(z, cst, mu, var, exp2=torch.exp2, log2=torch.log2):
     """(lse (G, B, c), resp (G, B, c, K)) of points ``z`` (G, c) under the
     models ``cst``/``mu``/``var`` (G, B, K).
 
-    The log-sum-exp is torch.logsumexp's (and jax.scipy's) max-shifted
-    form written out, with the sum over components in component order, so
-    that ``exp`` and ``log`` can be stand-ins: csrc/gmm_em.cuh holds the
-    same arithmetic per point, and the tests build it with g++ and hold it
+    The log-sum-exp of the JAX package's E-step, evaluated in the log2
+    domain with its per-round constants hoisted: per component one
+    reciprocal of the variance, ``cst * log2(e)`` and ``0.5 * log2(e) /
+    var``; per point and component a multiply-subtract and one ``exp2`` of
+    the max-shifted exponent; the sum in component order; one ``log2`` and
+    one reciprocal of the sum per point, and ``resp = e * (1 / s)``.
+    ``exp2`` and ``log2`` can be stand-ins: csrc/gmm_em.cuh holds the same
+    arithmetic per point, and the tests build it with g++ and hold it
     against this function bit for bit.
     """
+    c2 = cst * _LOG2E
+    h2 = _HALF_LOG2E * (1.0 / var)
     d = z[:, None, :, None] - mu[:, :, None, :]
-    q = 0.5 * d
-    q = q * d
-    q = q / var[:, :, None, :]
-    logp = cst[:, :, None, :] - q
-    m = logp.amax(dim=-1)
+    l2 = c2[:, :, None, :] - (d * d) * h2[:, :, None, :]
+    m = l2.amax(dim=-1)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    e = exp(logp - m[..., None])
+    e = exp2(l2 - m[..., None])
     s = e[..., 0]
     for k in range(1, e.shape[-1]):
         s = s + e[..., k]
-    lse = log(s) + m
-    return lse, exp(logp - lse[..., None])
+    lse = (log2(s) + m) * _LN2
+    return lse, e * (1.0 / s)[..., None]
 
 
 def m_step(nk, sk, qk, n_valid, comp_mask, reg):
@@ -92,8 +99,7 @@ def m_step(nk, sk, qk, n_valid, comp_mask, reg):
             torch.where(comp_mask, var, torch.ones_like(var)))
 
 
-def _em_plain(z, valid, w0, mu0, var0, comp_mask, n_iter, reg, chunk=2048,
-              exp=torch.exp, log=torch.log):
+def _em_plain(z, valid, w0, mu0, var0, comp_mask, n_iter, reg, chunk=2048):
     """Plain twin of kernel E and of the JAX package's ``_em_batched``:
     ``n_iter`` lockstep EM rounds for every model, then the total
     log-likelihood of every model under its final parameters.
@@ -109,11 +115,11 @@ def _em_plain(z, valid, w0, mu0, var0, comp_mask, n_iter, reg, chunk=2048,
 
     def stats(params):
         w, mu, var = params
-        cst = _log_constants(w, var, comp_mask, log)
+        cst = _log_constants(w, var, comp_mask)
         acc = None
         for lo in range(0, n_pad, chunk):
             zc, vc = z[:, lo:lo + chunk], valid[:, lo:lo + chunk]
-            lse, resp = responsibilities(zc, cst, mu, var, exp, log)
+            lse, resp = responsibilities(zc, cst, mu, var)
             resp = resp * vc[:, None, :, None]
             part = (resp.sum(dim=2),
                     (resp * zc[:, None, :, None]).sum(dim=2),

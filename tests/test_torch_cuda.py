@@ -605,18 +605,25 @@ def _em_inputs(dev, sizes, ks, n_init, seed):
     N = -(-max(sizes) // 2048) * 2048
     z = np.zeros((len(sizes), N), np.float32)
     for g, x in enumerate(groups):
-        z[g, :x.size] = (x - x.mean()) / x.std()
+        if x.size:  # a group of one point standardises to 0
+            z[g, :x.size] = (x - x.mean()) / max(x.std(), 1e-12)
     counts = np.array(sizes, np.int32)
     starts = gb._init_params([z[g] for g in range(len(sizes))], counts, ks,
                              n_init, max(ks), np.random.default_rng(seed))
     return [torch.from_numpy(a).to(dev) for a in (z, counts, *starts)]
 
 
-@pytest.mark.parametrize("sizes,ks,n_init", [
-    ((1000, 777, 50), [1], 4),                 # K = 1, ragged N
-    ((5000, 3001), [2, 3, 4], 3),              # ragged, several ks
-    ((20000,) * 12, [2, 3, 4, 5, 6], 10)])     # the smoke's model count
-def test_kernel_e_matches_twin(dev, sizes, ks, n_init):
+@pytest.mark.parametrize("sizes,ks,n_init,permute", [
+    ((1000, 777, 50), [1], 4, False),            # K = 1, ragged N
+    ((5000, 3001), [2, 3, 4], 3, False),         # ragged, several ks
+    ((20000,) * 12, [2, 3, 4, 5, 6], 10, False),  # the smoke's model count
+    ((3000, 1, 2500), [2, 3, 8], 3, True),       # K = 8, a group of 1 point,
+    # the models shuffled and each model's components too (masks that are
+    # not prefixes)
+    ((2000, 0, 1500), [2, 3], 2, False),         # a group of no point
+    ((4000,) * 40, [2, 3, 4, 5, 6], 10, False)])  # 40 groups: more
+# clusters than the card holds at once, blocks with room to spare
+def test_kernel_e_matches_twin(dev, sizes, ks, n_init, permute):
     """Three EM rounds: per model the log-likelihood within 1e-5 relative,
     means and weights within 1e-3, variances within 1e-3 relative (or
     1e-5 of mu^2 + var); the sums run in another order than the twin's.
@@ -625,13 +632,40 @@ def test_kernel_e_matches_twin(dev, sizes, ks, n_init):
     differ only where the twin's own likelihoods of the two tie within
     1e-3 (the float32 EM's restarts end that close after 100 unconverged
     rounds, in the JAX package as here). Two launches repeat bit for bit.
+    Outputs come back in the order of the starts, however the kernel
+    groups the models. A group of no point has no fit: the kernel leaves
+    its log-likelihoods 0 and its weights 0/0 (NaN), and the twin's
+    weights are NaN too.
     """
     from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
     from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import gmm_em
     z, counts, w0, mu0, var0, mask = _em_inputs(dev, sizes, ks, n_init,
                                                  seed=len(sizes))
+    G, B, K = w0.shape
+    back = None
+    if permute:
+        rng = np.random.default_rng(5)
+        order = torch.from_numpy(rng.permutation(B)).to(dev)
+        comp = torch.from_numpy(np.stack([rng.permutation(K)
+                                          for _ in range(B)])).to(dev)
+        idx = comp[order][None].expand(G, B, K)
+        w0, mu0, var0, mask = (t[:, order].gather(2, idx).contiguous()
+                               for t in (w0, mu0, var0, mask))
+        assert not all(bool(m[:m.sum()].all()) for m in mask.reshape(-1, K))
+        back = (torch.argsort(order), torch.argsort(comp, dim=1))
+
+    def unpermute(out):
+        """The outputs in the (group, k, restart) order of _em_inputs."""
+        if back is None:
+            return out
+        inv_b, inv_k = back
+        w, mu, var, ll = (t[:, inv_b] for t in out)
+        idx = inv_k[None].expand(G, B, K)
+        return (*(t.gather(2, idx) for t in (w, mu, var)), ll)
+
     valid = (torch.arange(z.shape[1], device=dev)[None, :]
              < counts[:, None].long()).float()
+    live = np.array(sizes) > 0
     before = gmm_em.launches
     got = gmm_em(z, counts, w0, mu0, var0, mask, 3, 1e-6)
     torch.cuda.synchronize()
@@ -639,6 +673,13 @@ def test_kernel_e_matches_twin(dev, sizes, ks, n_init):
     want = gb._em_plain(z, valid, w0, mu0, var0, mask, 3, 1e-6)
     g, w = ([t.double().cpu().numpy() for t in r] for r in (got, want))
     act = mask.cpu().numpy()
+    if not live.all():
+        empty = ~live
+        assert (g[3][empty] == 0).all()
+        assert np.isnan(g[0][empty][act[empty]]).all()
+        assert np.isnan(w[0][empty][act[empty]]).all()
+        g, w = ([a[live] for a in r] for r in (g, w))
+        act = act[live]
     assert (np.abs(g[3] - w[3]) <= 1e-5 * np.abs(w[3])).all()
     assert (np.abs(g[1] - w[1])[act] <= 1e-3).all()
     assert (np.abs(g[0] - w[0]) <= 1e-3).all()
@@ -648,14 +689,18 @@ def test_kernel_e_matches_twin(dev, sizes, ks, n_init):
 
     got = gmm_em(z, counts, w0, mu0, var0, mask, 100, 1e-6)
     again = gmm_em(z, counts, w0, mu0, var0, mask, 100, 1e-6)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, again))
     want = gb._em_plain(z, valid, w0, mu0, var0, mask, 100, 1e-6)
-    G, J = len(sizes), len(ks)
-    ll_g, ll_w = (r[3].double().cpu().numpy().reshape(G, J, n_init)
+    got, want = unpermute(got), unpermute(want)
+    J = len(ks)
+    ll_g, ll_w = (r[3].double().cpu().numpy().reshape(G, J, n_init)[live]
                   for r in (got, want))
     best_g, best_w = ll_g.max(-1), ll_w.max(-1)
     assert (np.abs(best_g - best_w) <= 1e-3 * np.abs(best_w)).all()
-    pen = np.array([3 * k - 1 for k in ks]) * np.log(sizes)[:, None]
+    pen = (np.array([3 * k - 1 for k in ks]) *
+           np.log(np.array(sizes)[live])[:, None])
     assert ((-2 * best_g + pen).argmin(1) ==
             (-2 * best_w + pen).argmin(1)).all()
     pick = ll_g.argmax(-1)

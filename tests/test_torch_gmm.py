@@ -30,9 +30,14 @@ own scale):
   group: equal, except where the two candidates' log-likelihoods (or
   BICs) tie within the tolerance above (none does on these seeds);
 - csrc/gmm_em.cuh built with g++ (-ffp-contract=off) against the twin's
-  per-point E-step (``responsibilities``) and M-step (``m_step``): bit for
-  bit, with a stand-in for exp and log on both sides (glibc's and torch's
-  CPU exp and log round some arguments apart).
+  per-point E-step (``responsibilities``, the log2-domain arithmetic of
+  kernel E) and M-step (``m_step``): bit for bit, with a stand-in for
+  exp2 and log2 (and for log in the per-round constants) on both sides
+  (glibc's and torch's CPU functions round some arguments apart);
+- the header's split of a group's models into balanced subsets
+  (``gmm::assign_subsets``, which every block of kernel E computes for its
+  group) against a plain function of the same rule: equal, every model in
+  exactly one subset, no subset over its cap.
 """
 
 import os
@@ -372,14 +377,32 @@ HARNESS = r"""
 #include <vector>
 #include "gmm_em.cuh"
 
-struct HostExp {  // the test's stand-ins for exp and log, as the twin's
-  float operator()(float x) const {
+struct HostExp2 {  // the test's stand-ins for exp2 and log (log2), as
+  float operator()(float x) const {  // the twin's
     return x < -87.0f ? 0.0f : 1.0f / (1.0f - x);
   }
 };
 struct HostLog {
   float operator()(float x) const { return (x - 1.0f) / (x + 1.0f); }
 };
+struct HostRcp {  // the twin's IEEE reciprocal
+  float operator()(float x) const { return 1.0f / x; }
+};
+
+// stdin: int32 -1, B, S, mmax, then nact (B int32). stdout: int32 rc,
+// then subset (B int32).
+int split() {
+  int hdr[3];
+  if (fread(hdr, sizeof hdr, 1, stdin) != 1) return 2;
+  const int B = hdr[0], S = hdr[1], mmax = hdr[2];
+  std::vector<int> nact(B), subset(B, -7), load(S), size(S);
+  if (fread(nact.data(), 4, B, stdin) != (size_t)B) return 3;
+  const int rc = gmm::assign_subsets(nact.data(), B, S, mmax, load.data(),
+                                     size.data(), subset.data());
+  fwrite(&rc, 4, 1, stdout);
+  fwrite(subset.data(), 4, B, stdout);
+  return 0;
+}
 
 // stdin: int32 B, K, n; then w, mu, var (B*K float32 each), act (B*K
 // bytes), points (n float32), then nk, sk, qk (B*K float32 each) and
@@ -408,7 +431,8 @@ int run(int B, int n) {
     gmm::prepare<K>(&w[b * K], &mu[b * K], &var[b * K], act, HostLog(), &m);
     for (int i = 0; i < n; ++i) {
       float resp[K];
-      const float lse = gmm::point<K>(m, x[i], HostExp(), HostLog(), resp);
+      const float lse = gmm::point<K>(m, x[i], HostExp2(), HostLog(),
+                                        HostRcp(), resp);
       fwrite(&lse, 4, 1, stdout);
       fwrite(resp, 4, K, stdout);
     }
@@ -431,13 +455,17 @@ int run(int B, int n) {
 
 int main() {
   int hdr[3];
-  if (fread(hdr, sizeof hdr, 1, stdin) != 1) return 2;
+  if (fread(hdr, 4, 1, stdin) != 1) return 2;
+  if (hdr[0] < 0) return split();
+  if (fread(hdr + 1, 4, 2, stdin) != 2) return 2;
   switch (hdr[1]) {
     case 1: return run<1>(hdr[0], hdr[2]);
     case 2: return run<2>(hdr[0], hdr[2]);
     case 3: return run<3>(hdr[0], hdr[2]);
+    case 4: return run<4>(hdr[0], hdr[2]);
     case 5: return run<5>(hdr[0], hdr[2]);
     case 6: return run<6>(hdr[0], hdr[2]);
+    case 7: return run<7>(hdr[0], hdr[2]);
     case 8: return run<8>(hdr[0], hdr[2]);
   }
   return 4;
@@ -471,17 +499,23 @@ def _log_stand_in(x):
 
 @pytest.mark.parametrize("B,K,n,seed", [(7, 3, 300, 0), (5, 6, 257, 1),
                                         (4, 1, 100, 2), (3, 8, 64, 3),
-                                        (6, 5, 128, 4), (2, 2, 33, 5)])
+                                        (6, 5, 128, 4), (2, 2, 33, 5),
+                                        (5, 4, 96, 6), (4, 7, 80, 7)])
 def test_kernel_arithmetic_equals_the_twin_bit_for_bit(harness, B, K, n,
                                                        seed):
+    """Every K the kernel takes; a far point whose exp2 underflows to 0 in
+    every component but the nearest; a model with one active component
+    (its sum is that one term); a mask that is not a prefix."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     act = np.zeros((B, K), bool)
     for b in range(B):  # a prefix of 1..K active components, one model not
         act[b, :rng.integers(1, K + 1)] = True
+    act[1] = False
+    act[1, rng.integers(0, K)] = True  # one component, anywhere
     if K > 2:
         act[-1] = rng.random(K) < 0.6
-        act[-1, 1] = True
+        act[-1, 0], act[-1, 1] = False, True  # not a prefix
     w = np.where(act, rng.dirichlet(np.ones(K), B), 0).astype(f32)
     w[0, 0] = 0.0 if act[0].sum() > 1 else w[0, 0]  # log-weight floor
     mu = np.where(act, rng.normal(0, 1.5, (B, K)), 0).astype(f32)
@@ -520,6 +554,10 @@ def test_kernel_arithmetic_equals_the_twin_bit_for_bit(harness, B, K, n,
                                              resp[0].shape)] == 0).all()
     if act.sum(axis=1).max() > 1:  # x = 40 underflows a component
         assert (resp[0, :, 0, :].numpy()[act] == 0).any()
+    # One active component: its responsibility is 1 at every point.
+    assert (e_part[1, :, 1:][:, act[1]] == 1.0).all()
+    if K > 2:
+        assert not act[-1, 0] and act[-1, 1]
     w2, mu2, var2 = gb.m_step(
         *(torch.from_numpy(a)[None] for a in (nk, sk, qk)),
         torch.tensor([n_valid]), torch.from_numpy(act)[None], float(reg))
@@ -527,3 +565,58 @@ def test_kernel_arithmetic_equals_the_twin_bit_for_bit(harness, B, K, n,
         np.testing.assert_array_equal(m_part[:, i].view(np.int32),
                                       got[0].numpy().view(np.int32))
     assert var2[0, -1, -1] == reg or not act[-1, -1]
+
+
+def _split_plain(nact, S, mmax):
+    """gmm::assign_subsets' rule: longest first (active count, then model
+    index), each model to the subset with the least work (count + 2) that
+    has room, the lowest index at a tie."""
+    if S < 1 or mmax < 1 or S * mmax < len(nact):
+        return -1, None
+    load, size, subset = [0] * S, [0] * S, [None] * len(nact)
+    for a in range(fused_gmm_em.KMAX, -1, -1):
+        for b, na in enumerate(nact):
+            if na != a:
+                continue
+            best = min((s for s in range(S) if size[s] < mmax),
+                       key=lambda s: (load[s], s))
+            subset[b] = best
+            load[best] += a + 2
+            size[best] += 1
+    return 0, subset
+
+
+CONFIG5_NACT = [k for k in (2, 3, 4, 5, 6) for _ in range(10)]
+
+
+@pytest.mark.parametrize("nact,S,mmax", [
+    (CONFIG5_NACT, 4, 16),                           # config 5's models
+    (CONFIG5_NACT, 50, 16),                          # one model a block
+    ([1] * 4, 1, 4),
+    ([0, 8, 3, 3, 7, 1, 0, 5, 2, 8, 6, 4], 5, 3),     # unsorted, empty models
+    ([3] * 33, 3, 11),                               # every subset full
+    ([2] * 10, 2, 4)])                               # cannot hold them
+def test_subset_split_equals_the_plain_rule(harness, nact, S, mmax):
+    blob = np.array([-1, len(nact), S, mmax] + list(nact),
+                    np.int32).tobytes()
+    proc = subprocess.run([harness], input=blob, capture_output=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.returncode
+    out = np.frombuffer(proc.stdout, dtype=np.int32)
+    rc, subset = int(out[0]), out[1:]
+    want_rc, want = _split_plain(nact, S, mmax)
+    assert rc == want_rc
+    if rc:
+        return
+    assert subset.tolist() == want
+    sizes = np.bincount(subset, minlength=S)
+    assert ((subset >= 0) & (subset < S)).all() and sizes.max() <= mmax
+    if sizes.max() < mmax:  # no cap in the way: within one model's work
+        loads = np.bincount(subset, weights=np.array(nact) + 2.0,
+                            minlength=S)
+        assert loads.max() - loads.min() <= max(nact) + 2
+    # Models in, models out: the blocks' model lists (each in model
+    # order) hold every model once.
+    blocks = [np.nonzero(subset == s)[0] for s in range(S)]
+    assert all((np.diff(m) > 0).all() for m in blocks)
+    assert sorted(np.concatenate(blocks).tolist()) == list(range(len(nact)))

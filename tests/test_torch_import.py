@@ -72,6 +72,7 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.tools.ab_mc_fit",
     "fluorosequencingimageanalysis_torch.ops.gmm_batch",
     "fluorosequencingimageanalysis_torch.ops.fused_gmm_em",
+    "fluorosequencingimageanalysis_torch.tools.ab_gmm_em",
     "fluorosequencingimageanalysis_torch.ops.plateau_batch",
     "fluorosequencingimageanalysis_torch.ops.chisq_batch_device",
     "fluorosequencingimageanalysis_torch.inference.gmm",
