@@ -84,9 +84,22 @@ after 100, beside its bound), ``Pipeline(device="cuda").per_cycle_gmm``
 fitter's float64 device scores against its exact host scores on 20,000
 ladders, the device chi-squared engine against the native core on config
 3's chi-squared set, and the four entry points on the card against the
-CPU on 2,000 x 6.
+CPU on 2,000 x 6; then kernel E beyond its register form (phase
+``gmm_limits``): ``per_cycle_gmm`` at max_fluors=8 (K = 9) against the
+twin, the largest K, more models than one launch takes, and a sliced call
+against one launch bit for bit. The sim group ends with the reference's
+four inference apps as the port's compat copies (phase
+``inference_apps``): simulate_peptide's batched simulation and fit on the
+card against the chained simulate -> fit, lognormal_fitter_v2 on the
+20,000-row track CSV against ``Pipeline.fluor_counts``, and the two host
+apps. Last, the multi-device layer on the one card (group ``parallel``):
+the sharded step over two entries of the card against the one-device step
+bit for bit, a ``Pipeline`` over that device list on config 4's first 8
+fields against the one-device CSV, and ``multihost.run_experiment`` in two
+processes over gloo, each child's CSV byte for byte the one-process CSV.
 ``--phases`` names the groups to run, of headline, experiment, objects,
-zstack, timetrace, fluor, sim and mixtures (default: all, in that order);
+zstack, timetrace, fluor, sim, mixtures and parallel (default: all, in
+that order);
 the kernel summary then lists the kernels those groups drove.
 ``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
@@ -104,6 +117,7 @@ import json
 import math
 import os
 import platform
+import socket
 import statistics
 import subprocess
 import sys
@@ -121,7 +135,7 @@ KERNELS = ("candidate_map", "fit_quality", "v8_score", "mc_fit", "gmm_em")
 HOST_CORES = ("tracklink", "stepchain", "chisqfit", "trackcsv", "randsiggen")
 # Groups of phases, in the order they run; --phases names a subset.
 PHASES = ("headline", "experiment", "objects", "zstack", "timetrace", "fluor",
-          "sim", "mixtures")
+          "sim", "mixtures", "parallel")
 # Config 4 (bench.py's experiment workload): fields, cycles, candidate and
 # spot buckets, timed runs after one warm-up.
 EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
@@ -210,6 +224,14 @@ E_LL_REL, E_MEAN_ABS, E_W_ABS, E_VAR_REL, E_VAR_OF_MOMENT = (
 E_TIE_REL = 1e-3
 PL_T, PL_DROPS = 20_000, 3
 MIX_SMALL_T, MIX_SMALL_F = 2_000, 6
+# Kernel E beyond its register form (phase gmm_limits): per_cycle_gmm at
+# max_fluors=8 (k 2-9, K = 9: the shared-memory form) on config 5's
+# photometries; the form's largest K (gmm::KMAX) on the same data, n_init
+# restarts; one group of LIM_N points with LIM_KS x LIM_N_INIT models
+# (more than BMAX: two launches) and LIM_N_ITER rounds; a call of the
+# config-5 models run in slices of LIM_SLICE against one launch.
+LIM_MAX_FLUORS, LIM_KMAX_N_INIT = 8, 2
+LIM_N, LIM_KS, LIM_N_INIT, LIM_N_ITER, LIM_SLICE = 10_000, (2, 3), 2100, 20, 25
 # Kernel E's work a point, model and pass, from _em_batched's arithmetic
 # (an FMA counts 2): per active component the difference, its scaled
 # square, the log-probability, the maximum, the shifted exponent, the sum,
@@ -222,6 +244,11 @@ E_OPS_PER_COMPONENT, E_OPS_PER_MODEL = 13, 2
 # multiply and two FMAs: 5), the exp (1), A * e + H (2), the maximum (1),
 # the normalising quotient (5), the difference, its square and the sum (3).
 D_OPS_PER_PIXEL = 19
+# The parallel group: the sharded step on a mesh of PAR_SHARDS entries of
+# one card; config 4's first PAR_F fields through a Pipeline over that
+# device list and through multihost.run_experiment in PAR_PROCS processes
+# (gloo, one card), each child given PAR_CHILD_TIMEOUT_S seconds.
+PAR_SHARDS, PAR_F, PAR_PROCS, PAR_CHILD_TIMEOUT_S = 2, 8, 2, 300
 # Photometry of the card against the CPU: float32 sums of ~2e4 in another
 # order differ by a few ulp (2e-3 each), which a value near 0 cannot absorb
 # relatively.
@@ -2374,11 +2401,170 @@ def sim_phases(tmpl, dev, ptxas):
               f"simulate pickles the API's molecules: {summary}")
     emit("cli", command="simulate", simulations=summary["simulations"],
          distinct_patterns=summary["distinct_patterns"], wall_s=cli_s)
+    apps = inference_apps_phase(dev)
     return {"launches": {"mc_detect": mc_runs[0]["launches"],
                          "mc_detect_default": default_launches,
-                         "sim_fit": fit_runs[0]["launches"]},
+                         "sim_fit": fit_runs[0]["launches"], **apps},
             "kernels": {"mc_fit": {"mc_detect": d_numbers},
                         "candidate_map": {"mc_detect": a_numbers}}}
+
+
+def inference_apps_phase(dev):
+    """The reference's four inference apps as the port's compat copies,
+    each through its ``main`` in this process: simulate_peptide at config
+    5's simulation parameters (one colour, K) with the batched simulation
+    on the card, against the chained simulate -> fit of the same draws
+    (the app's seed is the clock's, pinned here); lognormal_fitter_v2 on
+    config 5's 20,000-row track CSV with its beta given and no ON/OFF
+    adjustment, its signals against ``Pipeline.fluor_counts`` on that CSV
+    with the app's alpha; then the host apps iterative_background_v2 (the
+    app's signals against two control fits, up to cycle 8 without
+    multidrop, as the background-correct phase restricts them) and
+    remainder_correction. Emits "inference_apps"; returns kernel C's
+    launches in each device app."""
+    import pickle
+
+    from fluorosequencingimageanalysis_torch import _device
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.compat import (
+        iterative_background_v2, lognormal_fitter_v2, remainder_correction,
+        simulate_peptide)
+    from fluorosequencingimageanalysis_torch.config import (LognormalConfig,
+                                                            PipelineConfig)
+    from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
+        v8_score_fused)
+    from fluorosequencingimageanalysis_torch.sim import dye_sim
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_v8_workload)
+
+    epoch = 1_700_000_000.0
+    out, launches = {}, {}
+    ddif = (0.0,) + (0.30,) * 6
+    with tempfile.TemporaryDirectory() as tmp:
+        # simulate_peptide: 3 imaged mocks (4 - 1 omitted) and 8 Edmans.
+        argv = [SIM_SEQ, "K", "-N", str(SIM_N), "-m", str(SIM_MOCKS + 1),
+                "-o", "1", "-e", str(SIM_EDMANS), "--edman_efficiency",
+                str(SIM_PARAMS["p"]), "--dye_destruction", "0.1",
+                "--dud_dyes", str(SIM_PARAMS["u"]),
+                "--surface_degradation_1", str(SIM_PARAMS["s"]),
+                "--surface_degradation_1_num_cycles", str(SIM_PARAMS["sc"]),
+                "--surface_degradation_2", str(SIM_PARAMS["s2"]),
+                "--fluor_intensity", str(SIM_BETA), "--beta_sigma",
+                str(SIM_BETA_SIGMA), "--batched_simulation", "on",
+                "--no_csv", "--output_directory", os.path.join(tmp, "sim"),
+                "--device", str(dev)]
+        clock = simulate_peptide.time
+        simulate_peptide.time = lambda: epoch
+        try:
+            torch.cuda.synchronize()
+            v8_score_fused.launches = 0
+            t = time.perf_counter()
+            signals, _ = simulate_peptide.main(argv)
+            torch.cuda.synchronize()
+            sim_s = time.perf_counter() - t
+            launches["inference_apps_simulate_peptide"] = {
+                "v8_score": v8_score_fused.launches}
+        finally:
+            simulate_peptide.time = clock
+        chained = dye_sim.simulate_and_fit_batched(
+            SIM_SEQ, {"K"}, num_mocks=SIM_MOCKS, num_edmans=SIM_EDMANS,
+            num_simulations=SIM_N, seed=round(epoch) % (2 ** 31),
+            beta=SIM_BETA, beta_sigma=SIM_BETA_SIGMA, ddif=SIM_DDIF,
+            device=dev, **{k: v for k, v in SIM_PARAMS.items()})["signals"]
+        tot_a, tot_c = sum(signals.values()), sum(chained.values())
+        tvd = 0.5 * sum(abs(signals.get(k, 0) / tot_a -
+                            chained.get(k, 0) / tot_c)
+                        for k in set(signals) | set(chained))
+        out["simulate_peptide"] = {
+            "molecules": SIM_N, "wall_s": sim_s, "signals": tot_a,
+            "distinct_signals": len(signals), "tvd_vs_chained": tvd,
+            "equal_to_chained": signals == chained,
+            "launches": launches["inference_apps_simulate_peptide"]}
+
+        # lognormal_fitter_v2 on config 5's track CSV.
+        path = os.path.join(tmp, "tracks.csv")
+        ints, cats, _ = make_v8_workload(FC_ROWS, V8_F, V8_K, seed=1)
+        write_v8_tracks_csv(path, ints, cats)
+        argv = [path, "--device", str(dev), "--no_adjustment", "--beta",
+                str(V8_BETA), "--beta_sigma", str(V8_BETA_SIGMA), "-m",
+                "4", "-o", "0", "-e", str(V8_F - 4)]
+        clock = lognormal_fitter_v2.time
+        lognormal_fitter_v2.time = lambda: epoch
+        try:
+            torch.cuda.synchronize()
+            v8_score_fused.launches = 0
+            t = time.perf_counter()
+            fitted = lognormal_fitter_v2.main(argv)
+            torch.cuda.synchronize()
+            ln_s = time.perf_counter() - t
+            launches["inference_apps_lognormal_fitter_v2"] = {
+                "v8_score": v8_score_fused.launches}
+        finally:
+            lognormal_fitter_v2.time = clock
+        stem = next(n for n in os.listdir(tmp)
+                    if n.endswith("_INTERMEDIATES_v2.pkl"))
+        with open(os.path.join(tmp, stem), "rb") as fh:
+            (alpha, beta, _, _), _, _ = pickle.load(fh)
+        cfg = PipelineConfig(lognormal=LognormalConfig(
+            max_possible=5, allow_multidrop=True, max_deviation=3))
+        want = Pipeline(cfg, device=dev).fluor_counts(
+            path, V8_BETA, V8_BETA_SIGMA, quench_factors=ddif,
+            alpha_adjust=alpha, downstep_filtered=True)[0]
+        out["lognormal_fitter_v2"] = {
+            "rows": FC_ROWS, "wall_s": ln_s, "alpha": alpha, "beta": beta,
+            "signals": sum(fitted.values()), "distinct_signals": len(fitted),
+            "equal_to_fluor_counts": fitted == want,
+            "launches": launches["inference_apps_lognormal_fitter_v2"]}
+
+        # The host apps.
+        sig_pkl = os.path.join(tmp, stem.replace("INTERMEDIATES_v2",
+                                                 "SIGNALS"))
+        ac_rows = ["index,filepath"]
+        for i in (1, 2):
+            c_ints, c_cats, _ = make_v8_workload(FC_CONTROL_ROWS, V8_F,
+                                                 V8_K, seed=1 + i)
+            control = {"ch1": {0: {
+                (j, j): (tuple(c), tuple(x), j) for j, (c, x) in enumerate(
+                    zip(c_cats.tolist(),
+                        np.rint(c_ints).astype(np.int64).tolist()))}}}
+            pkl = os.path.join(tmp, f"control_{i}.pkl")
+            with open(pkl, "wb") as fh:
+                pickle.dump(Pipeline(cfg, device=dev).fluor_counts(
+                    control, V8_BETA, V8_BETA_SIGMA,
+                    quench_factors=ddif)[0], fh)
+            ac_rows.append(f"{i},{pkl}")
+        ac_csv = os.path.join(tmp, "controls.csv")
+        with open(ac_csv, "w") as fh:
+            fh.write("\n".join(ac_rows) + "\n")
+        t = time.perf_counter()
+        corrected = iterative_background_v2.main([
+            "--boc_file", sig_pkl, "--ac_file", ac_csv, "--num_cycles",
+            str(V8_F), "--omit_multidrop", "--boc_total", "8", "--ac_total",
+            "8", "--output_directory", os.path.join(tmp, "background")])
+        out["iterative_background_v2"] = {
+            "wall_s": time.perf_counter() - t,
+            "signals_out": len(corrected)}
+        t = time.perf_counter()
+        adjusted = remainder_correction.main([path, "--method", "4"])
+        with open(adjusted) as fh:
+            n_rows = sum(1 for _ in fh) - 1
+        out["remainder_correction"] = {"wall_s": time.perf_counter() - t,
+                                       "rows": n_rows}
+    _device.set_default_device(None)
+    emit("inference_apps", **out,
+         note="each app's main() in this process, --device set to the "
+              "card for the two that reach it; simulate_peptide's clock "
+              "pinned so that its seed is the chained run's")
+    sp, lf = out["simulate_peptide"], out["lognormal_fitter_v2"]
+    check(sp["tvd_vs_chained"] <= SIM_TVD and sp["launches"]["v8_score"] >= 1,
+          f"simulate_peptide's signals within TVD {SIM_TVD} of the chained "
+          f"simulate -> fit, kernel C launched: {sp}")
+    check(lf["equal_to_fluor_counts"] and lf["launches"]["v8_score"] >= 1,
+          f"lognormal_fitter_v2's signals are Pipeline.fluor_counts': {lf}")
+    check(out["iterative_background_v2"]["signals_out"] > 0 and
+          out["remainder_correction"]["rows"] == FC_ROWS,
+          f"the host apps ran: {out}")
+    return launches
 
 
 def bound_e(groups_n, ks, n_init, n_iter, nbytes):
@@ -2470,9 +2656,7 @@ def mixtures_phases(dev, ptxas):
     from fluorosequencingimageanalysis_torch.api import Pipeline
     from fluorosequencingimageanalysis_torch.inference.gmm import (
         _collect_raw, gmm_photometries_batched)
-    from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
-    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import (
-        geometry, gmm_em)
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import gmm_em
     from fluorosequencingimageanalysis_torch.ops.plateau_batch import (
         _all_scores, _segmentations, all_plateau_fits_batched,
         plateau_fit_batched)
@@ -2480,123 +2664,21 @@ def mixtures_phases(dev, ptxas):
     from fluorosequencingimageanalysis_torch.utils.synth import (
         make_chisq_traces, make_gmm_photometries, make_v8_workload)
 
-    ks, n_init, n_iter, reg = list(GMM_KS), GMM_N_INIT, GMM_N_ITER, 1e-6
-    G, J = GMM_F, len(ks)
+    ks, G, J = list(GMM_KS), GMM_F, len(GMM_KS)
 
     # -- gmm_em: kernel E against its twin, both on the card, on the
     # standardised cycles and starts that per_cycle_gmm builds.
     phot = make_gmm_photometries(GMM_T, GMM_F)
     groups = [np.asarray(_collect_raw(phot, c), np.float64)
               for c in range(G)]
-    n_valid = np.array([g.size for g in groups])
-    z, _, _, starts = gb.prepare(groups, ks, n_init, 0, 2048)
-    zt = torch.from_numpy(z).to(dev)
-    counts = torch.from_numpy(n_valid.astype(np.int32)).to(dev)
-    st = [torch.from_numpy(a).to(dev) for a in starts]
-    valid = (torch.arange(z.shape[1], device=dev)[None, :] <
-             counts[:, None].long()).float()
-    act = starts[3]
-
-    def host(out):
-        return [t.double().cpu().numpy() for t in out]
-
-    def twin_timed(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = gb._em_plain(zt, valid, *st, rounds, reg)
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
-
-    # Three rounds, model by model: the stated tolerances of the CPU
-    # parity tests (the sums run in another order than the twin's).
-    g3 = host(gmm_em(zt, counts, *st, 3, reg))
-    w3 = host(gb._em_plain(zt, valid, *st, 3, reg))
-    moment = w3[1] ** 2 + w3[2]
-    per_model3 = {
-        "loglik_rel": float((np.abs(g3[3] - w3[3]) / np.abs(w3[3])).max()),
-        "mean_abs": float(np.abs(g3[1] - w3[1])[act].max()),
-        "weight_abs": float(np.abs(g3[0] - w3[0]).max()),
-        "var_rel": float((np.abs(g3[2] - w3[2]) / w3[2])[act].max())}
-    var_ok = (np.abs(g3[2] - w3[2]) <= np.maximum(
-        E_VAR_REL * w3[2], E_VAR_OF_MOMENT * moment))[act].all()
-    check(per_model3["loglik_rel"] <= E_LL_REL and
-          per_model3["mean_abs"] <= E_MEAN_ABS and
-          per_model3["weight_abs"] <= E_W_ABS and var_ok,
-          f"kernel E vs twin after 3 rounds, model by model: {per_model3}")
-    # The full fit: n_iter rounds, against the twin and against the twin
-    # with its sums in chunks of half the size (what reordering float32
-    # sums alone does to n_iter rounds of EM).
-    got = host(gmm_em(zt, counts, *st, n_iter, reg))
-    again = host(gmm_em(zt, counts, *st, n_iter, reg))
-    repeats = all(np.array_equal(a, b) for a, b in zip(got, again))
-    want_t, twin_first = twin_timed(n_iter)
-    want = host(want_t)
-    del want_t
-    _, twin_second = twin_timed(n_iter)
-    reordered = host(gb._em_plain(zt, valid, *st, n_iter, reg, chunk=1024))
-    pen = np.array([3 * k - 1 for k in ks]) * np.log(n_valid)[:, None]
-
-    def against_twin(r):
-        """Per-model differences from the twin, the (group, k) pairs whose
-        best restart differs with the twin's gap between the two, the
-        BIC-selected k per group."""
-        ll_r, ll_t = (a[3].reshape(G, J, n_init) for a in (r, want))
-        pick_r, best_t = ll_r.argmax(-1), ll_t.max(-1)
-        twin_of_pick = np.take_along_axis(ll_t, pick_r[..., None],
-                                          -1)[..., 0]
-        flips = [{"group": int(g), "k": ks[j],
-                  "restart": int(pick_r[g, j]),
-                  "twin_restart": int(ll_t[g, j].argmax()),
-                  "twin_gap_rel": float(abs(best_t[g, j] -
-                                            twin_of_pick[g, j]) /
-                                        abs(best_t[g, j]))}
-                 for g, j in np.argwhere(pick_r != ll_t.argmax(-1))]
-        return {"loglik_rel": float((np.abs(r[3] - want[3]) /
-                                     np.abs(want[3])).max()),
-                "mean_abs": float(np.abs(r[1] - want[1])[act].max()),
-                "weight_abs": float(np.abs(r[0] - want[0]).max()),
-                "best_loglik_rel": float((np.abs(ll_r.max(-1) - best_t) /
-                                          np.abs(best_t)).max()),
-                "restart_flips": len(flips),
-                "max_flip_gap_rel": max((f["twin_gap_rel"] for f in flips),
-                                        default=0.0),
-                "k": [ks[j] for j in (-2 * ll_r.max(-1) + pen).argmin(1)],
-                "flips": flips}
-
-    kern = against_twin(got)
-    floor = against_twin(reordered)
-    k_twin = [ks[j] for j in (-2 * want[3].reshape(G, J, n_init).max(-1)
-                              + pen).argmin(1)]
-    # After n_iter rounds a model's likelihood may differ from the twin's
-    # by what reordering the twin's own sums moves it (twice that: it is
-    # the twin's spread, the kernel's order is a third), or E_TIE_REL; a
-    # restart may differ where the twin's likelihoods of the two tie
-    # within as much.
-    tie = max(E_TIE_REL, 2 * floor["loglik_rel"])
-    e_ms = time_ms(lambda: gmm_em(zt, counts, *st, n_iter, reg), 5)
-    e_med = statistics.median(e_ms)
-    e_bytes = zt.numel() * 4 + counts.numel() * 4 + sum(
-        t.numel() * t.element_size() for t in st) + 3 * st[0].numel() * 4 \
-        + G * J * n_init * 4
-    e_bound, e_by, e_type, e_work = bound_e(n_valid, ks, n_init, n_iter,
-                                            e_bytes)
-    geo = geometry(G, zt.shape[1], J * n_init, max(ks))
-    e_numbers = {"shape": {"G": G, "N": int(n_valid.max()), "B": J * n_init,
-                           "K": max(ks), "n_iter": n_iter},
-                 "max_abs_err": kern["mean_abs"], "ms": e_med,
-                 "plain_ms": statistics.median([twin_first, twin_second]),
-                 "bound_ms": e_bound, "bound_by": e_by,
-                 "share_of_bound": e_bound / e_med}
-    emit("gmm_em", **e_numbers, bound_type=e_type, **e_work,
-         **ptxas["gmm_em"], ms_runs=e_ms,
-         plain_ms_runs=[twin_first, twin_second],
-         per_model_after_3_rounds=per_model3, after_n_iter=kern,
-         twin_reordered_after_n_iter=floor, k_twin=k_twin,
-         flip_tie_rel=tie, repeats_bit_for_bit=repeats,
-         warps_per_sm=geo["blocks_per_sm"] * geo["warps"], geometry=geo,
+    failed, e = em_against_twin(dev, groups, ks, GMM_N_INIT, GMM_N_ITER,
+                                reps=5)
+    kern = e["after_n_iter"]
+    geo = e["geometry"]
+    e_numbers = {k: e[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "share_of_bound")}
+    emit("gmm_em", **e, **ptxas["gmm_em"],
+         warps_per_sm=geo["blocks_per_sm"] * geo["warps"],
          note="means and weights on the standardised scale; max_abs_err "
               "is the largest |delta mean| after n_iter rounds; "
               "twin_reordered: the twin with E-step chunks of 1024 "
@@ -2604,18 +2686,9 @@ def mixtures_phases(dev, ptxas):
               "models, blocks a cluster (each a slice of the group's "
               "points), warps a block, points a staged tile, blocks an SM "
               "and clusters the card holds at once (occupancy API)")
-    check(repeats, "kernel E repeats bit for bit")
+    check(not failed, f"kernel E at K = {max(ks)} against its twin: {failed}")
     check(ptxas["gmm_em"]["spill_bytes"] == 0,
           f"kernel E spills no registers: {ptxas['gmm_em']}")
-    check(kern["k"] == k_twin, f"BIC-selected k per group: kernel "
-                               f"{kern['k']}, twin {k_twin}")
-    check(kern["loglik_rel"] <= tie,
-          f"after {n_iter} rounds each model's log-likelihood within {tie} "
-          f"of the twin's: {kern['loglik_rel']}")
-    check(kern["max_flip_gap_rel"] <= tie,
-          f"a restart differs only at a near-tie of the twin's own "
-          f"likelihoods (within {tie}): {kern['flips']}")
-    del zt, valid, st
 
     # -- per_cycle_gmm: the user's entry point, kernel E once a call.
     pipe = Pipeline(device=dev, profile=True)
@@ -2646,8 +2719,8 @@ def mixtures_phases(dev, ptxas):
     check(k_pipe == kern["k"], f"per_cycle_gmm's k per cycle {k_pipe} is "
                                f"the kernel's {kern['k']}")
     walls = [r["wall_s"] for r in runs]
-    emit("per_cycle_gmm", traces=GMM_T, cycles=G, ks=ks, n_init=n_init,
-         n_iter=n_iter, wall_s_median=statistics.median(walls), runs=runs,
+    emit("per_cycle_gmm", traces=GMM_T, cycles=G, ks=ks, n_init=GMM_N_INIT,
+         n_iter=GMM_N_ITER, wall_s_median=statistics.median(walls), runs=runs,
          k_per_cycle=k_pipe,
          cycle0_means=sorted(float(m) for m in
                              np.ravel(scores[0][0].means_)),
@@ -2784,8 +2857,466 @@ def mixtures_phases(dev, ptxas):
         sk_line = sklearn_selection(GaussianMixture, small, card[0], dev)
     emit("mixtures_card_vs_cpu", traces=MIX_SMALL_T, cycles=MIX_SMALL_F,
          chisq_shape=[MIX_SMALL_T, 60], **cmp, sklearn=sk_line)
-    return {"launches": {"per_cycle_gmm": runs[0]["launches"]},
+    limits = gmm_limits_phase(dev, phot)
+    return {"launches": {"per_cycle_gmm": runs[0]["launches"],
+                         **limits["launches"]},
             "kernels": {"gmm_em": e_numbers}}
+
+
+def em_against_twin(dev, groups, ks, n_init, n_iter, reg=1e-6, full=True,
+                    reps=3):
+    """Kernel E and its twin, both on the card, on ``groups`` standardised
+    as gmm_fit_batched does. Returns (the gates that failed, the numbers).
+
+    After 3 rounds each model lies within the CPU parity tests' stated
+    tolerances (the sums run in another order than the twin's). After
+    ``n_iter`` rounds the kernel repeats bit for bit and picks the twin's
+    BIC-selected k per group; each model's log-likelihood may differ from
+    the twin's, and a restart may differ where the twin's likelihoods of
+    the two tie, by max(E_TIE_REL, twice what halving the twin's E-step
+    chunks moves them: that is the twin's own spread, the kernel's order
+    is a third). The numbers: those differences, the kernel's time over
+    ``reps`` runs, the twin's and the bound. Without ``full``, the 3-round
+    gate and the kernel's time only."""
+    from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import (
+        geometry, gmm_em)
+    G, J = len(groups), len(ks)
+    n_valid = np.array([g.size for g in groups])
+    z, _, _, starts = gb.prepare(groups, ks, n_init, 0, 2048)
+    zt = torch.from_numpy(z).to(dev)
+    counts = torch.from_numpy(n_valid.astype(np.int32)).to(dev)
+    st = [torch.from_numpy(a).to(dev) for a in starts]
+    valid = (torch.arange(z.shape[1], device=dev)[None, :] <
+             counts[:, None].long()).float()
+    act = starts[3]
+
+    def host(out):
+        return [t.double().cpu().numpy() for t in out]
+
+    def twin_timed(rounds, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = gb._em_plain(zt, valid, *st, rounds, reg, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        return host(out), start.elapsed_time(end)
+
+    def timed():
+        """The kernel's time over ``reps`` runs, taken after the
+        comparisons as the phase always took it, and the bound."""
+        e_ms = time_ms(lambda: gmm_em(zt, counts, *st, n_iter, reg), reps)
+        ms = statistics.median(e_ms)
+        nbytes = zt.numel() * 4 + counts.numel() * 4 + sum(
+            t.numel() * t.element_size() for t in st) + \
+            3 * st[0].numel() * 4 + G * J * n_init * 4
+        e_bound, e_by, e_type, e_work = bound_e(n_valid, ks, n_init,
+                                                n_iter, nbytes)
+        return {"shape": {"G": G, "N": int(n_valid.max()), "B": J * n_init,
+                          "K": max(ks), "n_iter": n_iter},
+                "ms": ms, "ms_runs": e_ms, "bound_ms": e_bound,
+                "bound_by": e_by, "bound_type": e_type, **e_work,
+                "share_of_bound": e_bound / ms,
+                "per_model_after_3_rounds": per_model3,
+                "plain_ms_3_rounds": plain3_ms,
+                "geometry": geometry(G, zt.shape[1], J * n_init, max(ks))}
+
+    failed = []
+    g3 = host(gmm_em(zt, counts, *st, 3, reg))
+    w3, plain3_ms = twin_timed(3)
+    per_model3 = {
+        "loglik_rel": float((np.abs(g3[3] - w3[3]) / np.abs(w3[3])).max()),
+        "mean_abs": float(np.abs(g3[1] - w3[1])[act].max()),
+        "weight_abs": float(np.abs(g3[0] - w3[0]).max()),
+        "var_rel": float((np.abs(g3[2] - w3[2]) / w3[2])[act].max())}
+    var_ok = (np.abs(g3[2] - w3[2]) <= np.maximum(
+        E_VAR_REL * w3[2], E_VAR_OF_MOMENT * (w3[1] ** 2 + w3[2])))[act]
+    if not (per_model3["loglik_rel"] <= E_LL_REL and
+            per_model3["mean_abs"] <= E_MEAN_ABS and
+            per_model3["weight_abs"] <= E_W_ABS and bool(var_ok.all())):
+        failed.append(f"after 3 rounds, model by model: {per_model3}")
+    if not full:
+        return failed, timed()
+    got = host(gmm_em(zt, counts, *st, n_iter, reg))
+    again = host(gmm_em(zt, counts, *st, n_iter, reg))
+    repeats = all(np.array_equal(a, b) for a, b in zip(got, again))
+    want, twin_first = twin_timed(n_iter)
+    _, twin_second = twin_timed(n_iter)
+    half, _ = twin_timed(n_iter, chunk=1024)
+    pen = np.array([3 * k - 1 for k in ks]) * np.log(n_valid)[:, None]
+
+    def against_twin(r):
+        """Per-model differences from the twin, the (group, k) pairs whose
+        best restart differs with the twin's gap between the two, the
+        BIC-selected k per group."""
+        ll_r, ll_t = (a[3].reshape(G, J, n_init) for a in (r, want))
+        pick_r, best_t = ll_r.argmax(-1), ll_t.max(-1)
+        twin_of_pick = np.take_along_axis(ll_t, pick_r[..., None],
+                                          -1)[..., 0]
+        flips = [{"group": int(g), "k": ks[j],
+                  "restart": int(pick_r[g, j]),
+                  "twin_restart": int(ll_t[g, j].argmax()),
+                  "twin_gap_rel": float(abs(best_t[g, j] -
+                                            twin_of_pick[g, j]) /
+                                        abs(best_t[g, j]))}
+                 for g, j in np.argwhere(pick_r != ll_t.argmax(-1))]
+        return {"loglik_rel": float((np.abs(r[3] - want[3]) /
+                                     np.abs(want[3])).max()),
+                "mean_abs": float(np.abs(r[1] - want[1])[act].max()),
+                "weight_abs": float(np.abs(r[0] - want[0]).max()),
+                "best_loglik_rel": float((np.abs(ll_r.max(-1) - best_t) /
+                                          np.abs(best_t)).max()),
+                "restart_flips": len(flips),
+                "max_flip_gap_rel": max((f["twin_gap_rel"] for f in flips),
+                                        default=0.0),
+                "k": [ks[j] for j in (-2 * ll_r.max(-1) + pen).argmin(1)],
+                "flips": flips}
+
+    kern, reordered = against_twin(got), against_twin(half)
+    k_twin = [ks[j] for j in (-2 * want[3].reshape(G, J, n_init).max(-1)
+                              + pen).argmin(1)]
+    tie = max(E_TIE_REL, 2 * reordered["loglik_rel"])
+    for ok, what in (
+            (repeats, "the kernel repeats bit for bit"),
+            (kern["k"] == k_twin, f"BIC-selected k per group: kernel "
+                                  f"{kern['k']}, twin {k_twin}"),
+            (kern["loglik_rel"] <= tie,
+             f"after {n_iter} rounds each model's log-likelihood within "
+             f"{tie} of the twin's: {kern['loglik_rel']}"),
+            (kern["max_flip_gap_rel"] <= tie,
+             f"a restart differs only at a near-tie of the twin's own "
+             f"likelihoods (within {tie}): {kern['flips']}")):
+        if not ok:
+            failed.append(what)
+    numbers = timed()
+    numbers.update(
+        max_abs_err=kern["mean_abs"],
+        plain_ms=statistics.median([twin_first, twin_second]),
+        plain_ms_runs=[twin_first, twin_second], after_n_iter=kern,
+        twin_reordered_after_n_iter=reordered, k_twin=k_twin,
+        flip_tie_rel=tie, repeats_bit_for_bit=repeats)
+    return failed, numbers
+
+
+def gmm_limits_phase(dev, phot):
+    """Fault F1's cases on the card: ``per_cycle_gmm`` at max_fluors=8
+    (K = 9, kernel E's shared-memory form) against the twin under the
+    gmm_em phase's rule, kernel E at its largest K, a group of more models
+    than one launch takes (sliced launches) against the twin's picks, and
+    a sliced call bit for bit against one launch. Emits "gmm_limits";
+    returns the per_cycle_gmm call's launches."""
+    from fluorosequencingimageanalysis_torch import _build
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.inference.gmm import (
+        _collect_raw)
+    from fluorosequencingimageanalysis_torch.ops import fused_gmm_em
+    from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import (
+        BMAX, KMAX, KREG, gmm_em)
+
+    groups = [np.asarray(_collect_raw(phot, c), np.float64)
+              for c in range(GMM_F)]
+    ks9 = list(range(2, LIM_MAX_FLUORS + 2))
+    failed9, k9 = em_against_twin(dev, groups, ks9, GMM_N_INIT,
+                                  GMM_N_ITER)
+    pipe = Pipeline(device=dev, profile=True)
+    torch.cuda.synchronize()
+    gmm_em.launches = 0
+    t = time.perf_counter()
+    scores, _, _ = pipe.per_cycle_gmm(phot, max_fluors=LIM_MAX_FLUORS,
+                                      n_init=GMM_N_INIT,
+                                      n_iter=GMM_N_ITER)
+    torch.cuda.synchronize()
+    pcg_s, pcg_launches = time.perf_counter() - t, gmm_em.launches
+    k_pipe = [scores[c][1] + 1 for c in range(GMM_F)]
+    failedmax, kmax = em_against_twin(dev, groups, [KMAX], LIM_KMAX_N_INIT,
+                                      GMM_N_ITER, full=False)
+
+    # More models than one launch takes: LIM_KS x LIM_N_INIT restarts of
+    # one group, against the twin's restart picks and k.
+    rng = np.random.default_rng(8)
+    one = [np.concatenate([rng.normal(2000.0, 300.0, LIM_N // 2),
+                           rng.normal(30000.0, 6000.0, LIM_N // 2)])]
+    n_models = len(LIM_KS) * LIM_N_INIT
+    torch.cuda.synchronize()
+    gmm_em.launches = 0
+    t = time.perf_counter()
+    big = gb.gmm_fit_batched(one, list(LIM_KS), n_init=LIM_N_INIT,
+                             n_iter=LIM_N_ITER, device=dev)
+    torch.cuda.synchronize()
+    big_s, big_launches = time.perf_counter() - t, gmm_em.launches
+    z, _, _, starts = gb.prepare(one, list(LIM_KS), LIM_N_INIT, 0, 2048)
+    zt = torch.from_numpy(z).to(dev)
+    cnt = torch.tensor([LIM_N], dtype=torch.int32, device=dev)
+    st = [torch.from_numpy(a).to(dev) for a in starts]
+    valid = (torch.arange(z.shape[1], device=dev)[None, :] < LIM_N).float()
+    twin_ms = time_ms(lambda: gb._em_plain(zt, valid, *st, LIM_N_ITER,
+                                           1e-6), 1)
+    ll_t = gb._em_plain(zt, valid, *st, LIM_N_ITER, 1e-6)[3].double().cpu(
+        ).numpy().reshape(len(LIM_KS), LIM_N_INIT)
+    ll_k = gb.em_in_slices(zt, cnt, *st, LIM_N_ITER, 1e-6)[3].double().cpu(
+        ).numpy().reshape(len(LIM_KS), LIM_N_INIT)
+    big_ms = time_ms(lambda: gb.em_in_slices(zt, cnt, *st, LIM_N_ITER,
+                                             1e-6), 3)
+    big_bytes = zt.numel() * 4 + 4 + sum(
+        t.numel() * t.element_size() for t in st) + 3 * st[0].numel() * 4 \
+        + n_models * 4
+    big_bound, big_by, big_type, _ = bound_e([LIM_N], list(LIM_KS),
+                                             LIM_N_INIT, LIM_N_ITER,
+                                             big_bytes)
+    pick = ll_k.argmax(-1)
+    gap = (np.abs(ll_t.max(-1) - ll_t[np.arange(len(LIM_KS)), pick]) /
+           np.abs(ll_t.max(-1)))
+    pen = np.array([3 * k - 1 for k in LIM_KS]) * np.log(LIM_N)
+    k_big_twin = LIM_KS[int((-2 * ll_t.max(-1) + pen).argmin())]
+    k_big = LIM_KS[int(big["bic"][0].argmin())]
+    del zt, st, valid
+
+    # Sliced against one launch, bit for bit, on config 5's models.
+    z5, _, _, s5 = gb.prepare(groups, list(GMM_KS), GMM_N_INIT, 0, 2048)
+    z5 = torch.from_numpy(z5).to(dev)
+    c5 = torch.from_numpy(np.array([g.size for g in groups],
+                                   np.int32)).to(dev)
+    s5 = [torch.from_numpy(a).to(dev) for a in s5]
+    whole = gb.em_in_slices(z5, c5, *s5, GMM_N_ITER, 1e-6)
+    fused_gmm_em.BMAX = LIM_SLICE
+    try:
+        sliced = gb.em_in_slices(z5, c5, *s5, GMM_N_ITER, 1e-6)
+    finally:
+        fused_gmm_em.BMAX = BMAX
+    bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(whole, sliced))
+    del z5, s5
+
+    regs = {}
+    for name, v in _build.ptxas_kernels("gmm_em").items():
+        form = ("shared_memory_form" if "kernel_sm" in name else
+                "register_form_K" + name.split("ILi")[1].split("E")[0])
+        regs[form] = v
+    emit("gmm_limits", kreg=KREG, kmax=KMAX, bmax=BMAX,
+         max_fluors=LIM_MAX_FLUORS, kernel_e_k9=k9, k_per_cycle=k_pipe,
+         per_cycle_gmm_wall_s=pcg_s,
+         per_cycle_gmm_launches={"gmm_em": pcg_launches},
+         kernel_e_kmax=kmax, models_over_bmax={
+             "points": LIM_N, "ks": list(LIM_KS), "n_init": LIM_N_INIT,
+             "models": n_models, "n_iter": LIM_N_ITER,
+             "launches": big_launches, "wall_s": big_s,
+             "kernel_ms": statistics.median(big_ms), "kernel_ms_runs": big_ms,
+             "plain_ms": statistics.median(twin_ms), "bound_ms": big_bound,
+             "bound_by": big_by, "bound_type": big_type,
+             "share_of_bound": big_bound / statistics.median(big_ms),
+             "k": k_big,
+             "k_twin": k_big_twin, "restart_flips": int(
+                 (pick != ll_t.argmax(-1)).sum()),
+             "max_flip_gap_rel": float(gap.max())},
+         slices_bit_for_bit={"models": len(GMM_KS) * GMM_N_INIT,
+                             "slice": LIM_SLICE, "equal": bitwise},
+         ptxas_by_form=regs,
+         note="kernel_e_k9: the shared-memory form at per_cycle_gmm's "
+              "max_fluors=8 models (config 5's 12 cycles, k 2-9, 10 "
+              "restarts, 100 rounds); kernel_e_kmax: K = KMAX on the same "
+              "data, 3 rounds against the twin, the time at 100 rounds")
+    check(not failed9, f"kernel E at K = 9 against its twin: {failed9}")
+    check(k_pipe == k9["after_n_iter"]["k"],
+          f"per_cycle_gmm(max_fluors=8)'s k {k_pipe} is the kernel's "
+          f"{k9['after_n_iter']['k']}")
+    check(pcg_launches == 1, f"one launch at K = 9: {pcg_launches}")
+    check(not failedmax, f"kernel E at K = {KMAX} against its twin: "
+                         f"{failedmax}")
+    check(big_launches == -(-n_models // BMAX) and k_big == k_big_twin and
+          float(gap.max()) <= E_TIE_REL,
+          f"{n_models} models in {big_launches} launches pick the twin's "
+          f"k ({k_big}, {k_big_twin}) and restarts (gap {gap.max()})")
+    check(bitwise, "a sliced call equals one launch bit for bit")
+    check(all(v["spill_bytes"] == 0 for v in regs.values()),
+          f"no instantiation of kernel E spills: {regs}")
+    return {"launches": {"gmm_limits_per_cycle_gmm":
+                         {"gmm_em": pcg_launches}}}
+
+
+def parallel_phases(dev, stack4=None):
+    """The multi-device layer on one card: ``experiment_step_sharded`` over
+    a mesh of PAR_SHARDS entries of the card on the headline stack,
+    against ``experiment_step`` bit for bit (each field's work is its own);
+    ``Pipeline`` over that device list on config 4's first PAR_F fields
+    (``stack4``, else made here), its CSV against the one-device
+    Pipeline's; and ``multihost.run_experiment`` in PAR_PROCS processes
+    (gloo, all on the card, PAR_F / PAR_PROCS fields each), every child's
+    CSV byte for byte the one-process CSV. The multi-card case is not
+    timed: the machine has one card. Emits "parallel_step",
+    "parallel_pipeline" and "multihost"; returns the kernels' launches."""
+    from fluorosequencingimageanalysis_torch.api import Pipeline
+    from fluorosequencingimageanalysis_torch.config import (
+        DetectConfig, PhotometryConfig, PipelineConfig, RegistrationConfig)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.parallel.mesh import (
+        experiment_step, experiment_step_sharded, make_mesh)
+    from fluorosequencingimageanalysis_torch.utils.convert import step_kwargs
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_experiment_stack, make_stack)
+
+    def counts():
+        return {"candidate_map": candidate_map_fused.launches,
+                "fit_quality": fit_quality.launches}
+
+    def zero():
+        candidate_map_fused.launches = fit_quality.launches = 0
+
+    cfg = PipelineConfig(
+        detect=DetectConfig(max_candidates=MAX_CANDIDATES,
+                            num_iters=NUM_ITERS),
+        registration=RegistrationConfig(upsample_factor=UPSAMPLE),
+        photometry=PhotometryConfig(method="mexican_hat"))
+    kw = step_kwargs(cfg)
+    stack, _ = make_stack(F, C, HW, HW)
+    x = torch.from_numpy(stack).to(dev)
+    mesh = make_mesh(devices=[dev] * PAR_SHARDS)
+    launches = {}
+    with torch.no_grad():
+        one = experiment_step(x, **kw)
+        torch.cuda.synchronize()
+        zero()
+        t = time.perf_counter()
+        sharded = experiment_step_sharded(x, mesh, **kw)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t
+        launches["parallel_sharded_step"] = counts()
+        one_s = host_ms(lambda: experiment_step(x, **kw), 3) / 1e3
+        sharded_s = host_ms(lambda: experiment_step_sharded(x, mesh, **kw),
+                            3) / 1e3
+    differ = {}
+    for k, v in one.items():
+        a, b = v.cpu().numpy(), sharded[k].cpu().numpy()
+        if a.shape != b.shape or not np.array_equal(
+                a, b, equal_nan=a.dtype.kind == "f"):
+            differ[k] = (float(np.nanmax(np.abs(a.astype(np.float64) -
+                                                b.astype(np.float64))))
+                         if a.shape == b.shape else "shape")
+    emit("parallel_step", mesh=mesh.shape, shape=list(stack.shape),
+         one_device_s=one_s, sharded_s=sharded_s,
+         launches=launches["parallel_sharded_step"],
+         keys_differing=differ,
+         note="both shards on the one card, run one after the other (each "
+              "shard's consolidate reads the host every round); a shard's "
+              "fields are the same work as in the one-device step, so the "
+              "outputs are equal bit for bit")
+    check(not differ, f"the sharded step equals experiment_step bit for "
+                      f"bit; largest differences: {differ} (each field's "
+                      f"work is its own: a difference is a fault)")
+    check(launches["parallel_sharded_step"] == {
+        "candidate_map": PAR_SHARDS, "fit_quality": PAR_SHARDS},
+        f"one launch each of A and B a shard: {launches}")
+    del x, one, sharded
+
+    if stack4 is None:
+        stack4 = np.clip(make_experiment_stack(EXP_F, EXP_C), 0,
+                         65535).astype(np.uint16)
+    stack8 = np.ascontiguousarray(stack4[:PAR_F])
+    ekw = dict(max_candidates=EXP_K, max_spots=EXP_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        csvs = {}
+        walls = {}
+        for name, device in (("one_device", dev),
+                             ("device_list", [dev] * PAR_SHARDS)):
+            pipe = Pipeline(device=device)
+            pipe.run_experiment(stack8[:1], **ekw)
+            torch.cuda.synchronize()
+            zero()
+            t = time.perf_counter()
+            res = pipe.run_experiment(
+                stack8, csv_path=os.path.join(tmp, name + ".csv"), **ekw)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t
+            launches["parallel_pipeline_" + name] = counts()
+            with open(os.path.join(tmp, name + ".csv"), "rb") as fh:
+                csvs[name] = fh.read()
+            csvs[name + "_rows"] = len(res["rows"])
+        same = csvs["one_device"] == csvs["device_list"]
+        emit("parallel_pipeline", fields=PAR_F, mesh=mesh.shape,
+             rows=csvs["one_device_rows"], csv_equal=same, wall_s=walls,
+             launches={k: v for k, v in launches.items()
+                       if k.startswith("parallel_pipeline")})
+        check(same and csvs["one_device_rows"] == csvs["device_list_rows"],
+              "Pipeline over a device list writes the one-device CSV")
+
+        # multihost.run_experiment in PAR_PROCS processes over gloo.
+        npy = os.path.join(tmp, "stack8.npy")
+        np.save(npy, stack8)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-child",
+             f"{r},{PAR_PROCS},{port},{dev},{tmp}"], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(PAR_PROCS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=PAR_CHILD_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        mh_s = time.perf_counter() - t
+        for p, log in zip(procs, logs):
+            check(p.returncode == 0, f"a multihost child failed (exit "
+                                     f"{p.returncode}): {log[-3000:]}")
+        children = [json.loads(log.strip().splitlines()[-1]) for log in logs]
+        equal = []
+        for r in range(PAR_PROCS):
+            with open(os.path.join(tmp, f"multihost_{r}.csv"), "rb") as fh:
+                equal.append(fh.read() == csvs["one_device"])
+    emit("multihost", processes=PAR_PROCS, backend="gloo",
+         fields_per_process=PAR_F // PAR_PROCS, wall_s=mh_s,
+         children=children, csv_equal_to_one_process=equal,
+         note="wall: both children from spawn to exit (start-up, the "
+              "kernels' load, the group's set-up and the run)")
+    check(all(equal), f"every process's CSV is the one-process CSV: {equal}")
+    return {"launches": launches, "kernels": {}}
+
+
+def multihost_child(spec):
+    """One process of the parallel group's multihost run: joins the gloo
+    group, runs multihost.run_experiment on its share of the fields on the
+    device (the parent's) and writes its CSV; prints its launches and wall
+    as JSON."""
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.parallel import multihost
+    from fluorosequencingimageanalysis_torch.parallel.mesh import make_mesh
+
+    rank, nproc, port, device, tmp = spec.split(",", 4)
+    rank, nproc = int(rank), int(nproc)
+    multihost.initialize(f"localhost:{port}", num_processes=nproc,
+                         process_id=rank)
+    stack = np.load(os.path.join(tmp, "stack8.npy"))
+    share = stack.shape[0] // nproc
+    t = time.perf_counter()
+    res = multihost.run_experiment(
+        stack[rank * share:(rank + 1) * share],
+        csv_path=os.path.join(tmp, f"multihost_{rank}.csv"),
+        mesh=make_mesh(devices=[device]), max_candidates=EXP_K,
+        max_spots=EXP_S)
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    torch.distributed.destroy_process_group()
+    launches = {"candidate_map": candidate_map_fused.launches,
+                "fit_quality": fit_quality.launches}
+    print(json.dumps({"rank": rank, "wall_s": wall, "rows": len(res["rows"]),
+                      "launches": launches}), flush=True)
 
 
 def headline_phases(tmpl, dev, ptxas, profile=False):
@@ -3059,7 +3590,11 @@ def main():
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated groups of phases to run, of "
                          + ", ".join(PHASES) + " (default: all of them)")
+    ap.add_argument("--multihost-child", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.multihost_child is not None:
+        return multihost_child(args.multihost_child)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown or not phases:
@@ -3098,10 +3633,9 @@ def main():
     if "experiment" in phases:  # config 4
         done["experiment"] = experiment_phase(tmpl, dev,
                                               profile_host=args.profile)
+    stack4 = done.get("experiment", {}).pop("stack", None)
     if "objects" in phases:  # the class path on config 4's first fields
-        done["objects"] = objects_phases(
-            tmpl, dev, done.get("experiment", {}).pop("stack", None))
-    done.get("experiment", {}).pop("stack", None)
+        done["objects"] = objects_phases(tmpl, dev, stack4)
     if "zstack" in phases:  # config 2 and the single-image front door
         done["zstack"] = zstack_phases(tmpl, dev)
     if "timetrace" in phases:  # the movie and config 3
@@ -3113,6 +3647,8 @@ def main():
         done["sim"] = sim_phases(tmpl, dev, ptxas)
     if "mixtures" in phases:  # the per-cycle mixtures and batched fitters
         done["mixtures"] = mixtures_phases(dev, ptxas)
+    if "parallel" in phases:  # the sharded step, a device list, multihost
+        done["parallel"] = parallel_phases(dev, stack4)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_summary(done, ptxas)}), flush=True)
@@ -3198,7 +3734,7 @@ def kernel_summary(done, ptxas):
                 done["experiment"]["launches"][name]
             entry["experiment"] = done["experiment"]["kernels"][name]
         for group in ("objects", "zstack", "timetrace", "fluor", "sim",
-                      "mixtures"):
+                      "mixtures", "parallel"):
             if group not in done:
                 continue
             for path, n in done[group]["launches"].items():

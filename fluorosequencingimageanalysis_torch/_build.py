@@ -170,6 +170,22 @@ def ptxas_info(name: str) -> dict:
     return {"registers": max(regs), "spill_bytes": sum(map(int, spills))}
 
 
+def ptxas_kernels(name: str) -> dict:
+    """Registers and spill bytes of each kernel of the current build of
+    ``csrc/<name>.cu``, by its mangled name (one entry per template
+    instantiation), from the kept ptxas report."""
+    with open(ptxas_path(name)) as f:
+        text = f.read()
+    out = {}
+    for part in text.split("Compiling entry function '")[1:]:
+        kernel = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", part)
+        out[kernel] = {"registers": int(regs.group(1)) if regs else None,
+                       "spill_bytes": sum(map(int, spills))}
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>``, built on first use."""
     with _lock:

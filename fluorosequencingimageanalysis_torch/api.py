@@ -5,8 +5,11 @@ Counterpart of fluorosequencingimageanalysis_tpu/api.py ``Pipeline``'s
 ``run_timetraces``, ``run_files``, ``stepfit``, ``chi_squared_stepfit``,
 ``fluor_counts``, ``fluor_counts_calibrated``, ``per_cycle_gmm`` and
 ``simulate_signals``, on one device, with its
-content-hash artifact store (utils/checkpoint.py). The JAX Pipeline's mesh
-padding has no counterpart.
+content-hash artifact store (utils/checkpoint.py). ``Pipeline(device=[...])``
+(a device list, or a ``parallel.mesh.Mesh``) shards ``run_stack`` and
+``run_experiment`` over those devices, padding the fields axis to the data
+axis as the JAX Pipeline does; its other methods raise
+``NotImplementedError`` there (``MULTI_DEVICE_GAP``).
 
     from fluorosequencingimageanalysis_torch.api import Pipeline
     out = Pipeline(device="cuda").run_stack(stack)       # [F, C, H, W]
@@ -58,6 +61,10 @@ EXPERIMENT_KEYS = ("offsets_h", "offsets_w", "spot_rh", "spot_rw",
                    "cand_count", "photometry")
 
 logger = logging.getLogger(__name__)
+
+# What a Pipeline over more than one device does not shard yet.
+MULTI_DEVICE_GAP = ("ROADMAP Queue 1, item 3: shard the other Pipeline "
+                    "methods over a device list")
 
 
 def _normalize_stack(stack):
@@ -135,14 +142,49 @@ class Pipeline:
                 JAX package's PipelineConfig works too.
             device: where the step runs ("cuda", "cuda:1", "cpu", ...). A
                 CUDA device must exist; CPU runs the kernels' plain twins.
+                A list of devices, or a ``parallel.mesh.Mesh``, shards
+                ``run_stack`` and ``run_experiment``'s step over them
+                (fields over the data axis); the first is ``self.device``.
             store: utils.checkpoint.ArtifactStore for run caching, or None.
             profile: record host-clock stage timings into
                 ``utils.profiling``'s registry.
         """
+        from .parallel.mesh import Mesh, make_mesh
+
         self.config = config if config is not None else PipelineConfig()
-        self.device = resolve_device(device)
+        self.mesh = None
+        if isinstance(device, Mesh):
+            self.mesh = device
+        elif isinstance(device, (list, tuple)):
+            self.mesh = make_mesh(devices=device)
+        self.device = (self.mesh.devices[0, 0] if self.mesh is not None
+                       else resolve_device(device))
         self.store = store
         self.profile = profile
+
+    def _one_device(self, method):
+        """Raise for a method that does not shard over several devices."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                f"Pipeline.{method} runs on one device; a Pipeline over "
+                f"{self.mesh.size} devices shards run_stack and "
+                f"run_experiment only ({MULTI_DEVICE_GAP})")
+
+    def _step(self, stack, **kw):
+        """``experiment_step`` on ``self.device``, or sharded over
+        ``self.mesh`` with the fields axis padded to a multiple of its
+        data axis by repeating the last field (the padding is dropped)."""
+        from .parallel.mesh import experiment_step, experiment_step_sharded
+
+        if self.mesh is None:
+            return experiment_step(stack, **kw)
+        F = stack.shape[0]
+        pad = (-F) % self.mesh.shape["data"]
+        if pad:
+            stack = torch.cat([stack, stack[-1:].expand(
+                pad, *stack.shape[1:])])
+        out = experiment_step_sharded(stack, self.mesh, **kw)
+        return {k: v[:F] for k, v in out.items()}
 
     def _stage(self, name):
         if self.profile:
@@ -201,8 +243,6 @@ class Pipeline:
         package's ``experiment_step_sharded``, from the artifact store
         (keyed by stack content + config) when one is set and holds it.
         """
-        from .parallel.mesh import experiment_step
-
         stack = _normalize_stack(stack)
         if stack.ndim != 4 or stack.shape[0] == 0:
             raise ValueError("stack must be a non-empty [fields, cycles, "
@@ -216,7 +256,7 @@ class Pipeline:
             with self._stage("api/run_stack"):
                 x = stack.to(self.device)
                 with torch.no_grad():
-                    out = experiment_step(x, max_spots=max_spots, **kw)
+                    out = self._step(x, max_spots=max_spots, **kw)
                 return {k: v.cpu().numpy() for k, v in out.items()
                         if keys is None or k in keys}
 
@@ -253,12 +293,14 @@ class Pipeline:
         artifact store the concatenated outputs are cached under
         run_stack's key; a hit yields one ``(full_out, None, 0)``.
         """
-        from .parallel.mesh import experiment_step
-
         if dispatch not in ("eager", "window"):
             raise ValueError(f"dispatch must be 'eager' or 'window' (got "
                              f"{dispatch!r})")
         g = GROUP_FIELDS
+        if self.mesh is not None:  # whole data shards a group
+            n_data = self.mesh.shape["data"]
+            g = max(g, n_data)
+            g += (-g) % n_data
         kw = self._step_kwargs(max_candidates, self._device_phot_method(),
                                photometry_min=None)
         keys = tuple(keys)
@@ -280,7 +322,7 @@ class Pipeline:
         def step(i):
             grp = uploader.take(i)
             with torch.no_grad():
-                out = experiment_step(grp, max_spots=max_spots, **kw)
+                out = self._step(grp, max_spots=max_spots, **kw)
             profiling.bump("ledger/step_dispatches")
             event = None
             if on_card:
@@ -370,6 +412,7 @@ class Pipeline:
         frames) with ``psfs``. The artifact store caches the array outputs
         only (``psfs=True`` always computes).
         """
+        self._one_device("run_zstack")
         from .models.detect import (SpotFindResult, _fetch_async,
                                     detect_and_fit_batch,
                                     detect_and_fit_exhaustive,
@@ -913,6 +956,7 @@ class Pipeline:
         photometries (N, T), step_fits, step_fit_intermediates,
         trace_count, csv_path.
         """
+        self._one_device("run_timetrace")
         from .models.detect import find_peptide_centers
         from .ops.background import widen
         from .ops.stepfit_batch import stepfit_batched
@@ -1055,6 +1099,7 @@ class Pipeline:
 
         Returns a list of run_timetrace result dicts, in order.
         """
+        self._one_device("run_timetraces")
         if "csv_path" in kwargs:
             raise TypeError(
                 "run_timetraces takes csv_paths (one per movie), "
@@ -1105,6 +1150,7 @@ class Pipeline:
         Returns a list of N (photometries, ck_filtered, plateaus,
         t_filtered_plateaus) tuples (ops.stepfit_batch.stepfit_batched).
         """
+        self._one_device("stepfit")
         from .ops.stepfit_batch import stepfit_batched
         sf = self.config.stepfit
         with self._stage("api/stepfit"):
@@ -1147,6 +1193,7 @@ class Pipeline:
         The scoring runs on the pipeline's device (a ``device=`` keyword
         names another): the hand-written kernel on a CUDA device.
         """
+        self._one_device("fluor_counts")
         ln = self.config.lognormal
         if quench_factors is None:
             # config.lognormal.quench_factors when set, else no quenching
@@ -1212,6 +1259,7 @@ class Pipeline:
         value the fits used), beta_sigma_estimate, original_beta,
         original_beta_sigma}.
         """
+        self._one_device("fluor_counts_calibrated")
         from collections import defaultdict
 
         from .inference.calibration import _get_m0Dm1, last_drop_method_v2
@@ -1293,6 +1341,7 @@ class Pipeline:
         one dispatch. Returns (all_fit_scores, all_fits, raw_photometries)
         in the reference's structure, with BatchedGMM1D fits
         (means_/covars_/weights_/bic)."""
+        self._one_device("per_cycle_gmm")
         from .inference.gmm import per_cycle_gmm_batched
         with self._stage("api/per_cycle_gmm"):
             return per_cycle_gmm_batched(
@@ -1308,6 +1357,7 @@ class Pipeline:
         C++ sampler (csrc/randsiggen.cpp, built with g++ at first use). A
         failed build raises: the JAX package's quiet rerun on the Python
         sampler would draw from another stream."""
+        self._one_device("simulate_signals")
         from .native.randsiggen import monte_carlo_trie_native
 
         with self._stage("api/simulate_signals"):

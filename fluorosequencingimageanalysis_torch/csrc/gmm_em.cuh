@@ -2,7 +2,8 @@
 // models into balanced subsets, for the batched 1D Gaussian-mixture EM of
 // kernel E, for nvcc and g++ alike.
 //
-// A model of K components (K a compile-time bound; a component may be
+// A model of K components (K a compile-time bound in kernel E's register
+// form, a runtime count in its shared-memory form; a component may be
 // inactive) holds per component, from its weight w, mean mu and variance
 // var, the constants of one round in the log2 domain:
 //   cst = log(max(w, 1e-30)) - 0.5 * (log(var) + log(2 pi))
@@ -47,7 +48,8 @@ constexpr float LOG_2PI = 1.8378770664093453f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float HALF_LOG2E = 0.7213475204444817f;  // 0.5f * LOG2E, exact
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int KMAX = 8;  // the largest component count kernel E takes
+constexpr int KREG = 8;     // the largest K of kernel E's register form
+constexpr int KMAX = 256;   // the largest K kernel E takes
 
 template <int K>
 struct Model {
@@ -110,6 +112,40 @@ GMM_FN float point_terms(const Model<K>& m, float x, Exp2 exp2_fn,
   return (log2_fn(s) + mx) * LN2;
 }
 
+// The E-step of point x over a model's a active components, their
+// constants compacted in component order (c2[j], mu[j], h2[j], j < a):
+// returns lse and writes the shift mx and r = rcp_fn(s), the arithmetic of
+// point_terms with each term's exponent computed again for the sum. A
+// component's e is component_term(..., mx), so resp = e * r as above.
+template <class Exp2, class Log2, class Rcp>
+GMM_FN float point_norm(const float* c2, const float* mu, const float* h2,
+                        int a, float x, Exp2 exp2_fn, Log2 log2_fn,
+                        Rcp rcp_fn, float* mx_out, float* r) {
+  float mx = -INFINITY;
+  for (int j = 0; j < a; ++j) {
+    const float d = x - mu[j];
+    mx = fmaxf(mx, c2[j] - (d * d) * h2[j]);
+  }
+  if (!isfinite(mx)) mx = 0.0f;
+  float s = 0.0f;
+  for (int j = 0; j < a; ++j) {
+    const float d = x - mu[j];
+    const float e = exp2_fn((c2[j] - (d * d) * h2[j]) - mx);
+    s = j == 0 ? e : s + e;
+  }
+  *mx_out = mx;
+  *r = rcp_fn(s);
+  return (log2_fn(s) + mx) * LN2;
+}
+
+// One active component's e at point x under the shift mx of point_norm.
+template <class Exp2>
+GMM_FN float component_term(float c2, float mu, float h2, float x, float mx,
+                            Exp2 exp2_fn) {
+  const float d = x - mu;
+  return exp2_fn((c2 - (d * d) * h2) - mx);
+}
+
 // The E-step of point x: returns lse and writes the K responsibilities.
 template <int K, class Exp2, class Log2, class Rcp>
 GMM_FN float point(const Model<K>& m, float x, Exp2 exp2_fn, Log2 log2_fn,
@@ -137,11 +173,9 @@ GMM_FN void component_update(float nk, float sk, float qk, float n,
 // The normalised weight of component k from the K raw weights (summed in
 // component order), and the final mean and variance of an inactive
 // component (0 and 1).
-template <int K>
-GMM_FN void component_finish(const float* w_raw, int k, bool act,
+GMM_FN void component_finish(const float* w_raw, int K, int k, bool act,
                              float* w, float* mu, float* var) {
   float tot = w_raw[0];
-#pragma unroll
   for (int j = 1; j < K; ++j) tot = tot + w_raw[j];
   *w = w_raw[k] / fmaxf(tot, 1e-30f);
   if (!act) {
@@ -152,19 +186,25 @@ GMM_FN void component_finish(const float* w_raw, int k, bool act,
 
 // The split of one group's B models into S subsets of at most mmax
 // models (S * mmax >= B), each carrying about the same work: a model's
-// work is its active component count (0 to KMAX) plus 2 (the per-point
-// log2, reciprocal and log-sum-exp). Longest first (by active count, then
-// by model index), each model goes to the subset with the least work so
-// far that has room (the lowest index at a tie). Writes subset[b] for
-// every model, using load and size (S ints each) as scratch; returns 0,
-// or -1 when the subsets cannot hold the models. Every block of kernel E
+// work is its active component count plus 2 (the per-point log2,
+// reciprocal and log-sum-exp). Longest first (by active count, then by
+// model index), each model goes to the subset with the least work so far
+// that has room (the lowest index at a tie); each pass over the models
+// takes the largest count below the last pass's, so the passes are as
+// many as the distinct counts, whatever K is. Writes subset[b] for every
+// model, using load and size (S ints each) as scratch; returns 0, or -1
+// when the subsets cannot hold the models. Every block of kernel E
 // computes it for its group and keeps its own subset's models in model
 // order.
 GMM_FN int assign_subsets(const int* nact, int B, int S, int mmax,
                           int* load, int* size, int* subset) {
   if (S < 1 || mmax < 1 || static_cast<long long>(S) * mmax < B) return -1;
   for (int s = 0; s < S; ++s) load[s] = size[s] = 0;
-  for (int a = KMAX; a >= 0; --a) {
+  for (int cur = 0x7fffffff;;) {
+    int a = -1;
+    for (int b = 0; b < B; ++b)
+      if (nact[b] < cur && nact[b] > a) a = nact[b];
+    if (a < 0) break;
     for (int b = 0; b < B; ++b) {
       if (nact[b] != a) continue;
       int best = -1;
@@ -174,6 +214,7 @@ GMM_FN int assign_subsets(const int* nact, int B, int S, int mmax,
       load[best] += a + 2;
       size[best] += 1;
     }
+    cur = a;
   }
   return 0;
 }

@@ -18,6 +18,11 @@ kernel picks its grid and subsets itself (``geometry`` reports them). At
 config 5's mixtures (12 x 100,000 points, 50 models, K = 6, 100 rounds)
 it takes 17.3 ms on an NVIDIA H100 80GB HBM3 at 700 W, 42% of its bound,
 against 89.5 ms for its first form (tools/ab_gmm_em.py, in turns).
+Up to ``KREG`` components the kernel keeps a model's constants and
+statistics in registers; above it, up to ``KMAX``, its shared-memory
+form keeps them in shared memory and computes each point's terms twice.
+A group of more than ``BMAX`` models is split by
+``ops/gmm_batch.py::em_in_slices``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import torch
 
 from .gmm_batch import _em_plain
 
-KMAX = 8  # gmm::KMAX in csrc/gmm_em.cuh
+KREG = 8  # gmm::KREG in csrc/gmm_em.cuh: the register form's largest K
+KMAX = 256  # gmm::KMAX in csrc/gmm_em.cuh
 BMAX = 4096  # BMAX in csrc/gmm_em.cu: models a group
 GEOMETRY_KEYS = ("subsets", "cluster", "warps", "tile", "smem_bytes",
                  "active_clusters", "blocks_per_sm", "models_per_block_max",
@@ -83,7 +89,7 @@ def gmm_em(z, counts, w0, mu0, var0, comp_mask, n_iter, reg, chunk=2048):
     active components ``comp_mask`` (G, B, K) bool, over ``z`` (G, N)
     float32 of which row g's first ``counts[g]`` (int32) points are valid;
     ``reg`` floors the variances. The hand-written kernel for contiguous
-    CUDA tensors (K <= 8, B <= 4096), ``_em_plain`` (chunks of ``chunk``
+    CUDA tensors (K <= 256, B <= 4096), ``_em_plain`` (chunks of ``chunk``
     points, N a multiple of it) for CPU tensors."""
     if z.ndim != 2:
         raise ValueError(f"gmm_em: (G, N) data required, got "

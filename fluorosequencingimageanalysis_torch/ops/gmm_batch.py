@@ -13,7 +13,8 @@ package fits all of them as one array program. Here the models are
 
 and ``gmm_fit_batched`` hands them, with the (G, N) standardised data and
 each group's count of points, to ``ops/fused_gmm_em.py::gmm_em``: kernel E
-(csrc/gmm_em.cu) on the card, ``_em_plain`` on the CPU. ``_em_plain`` is
+(csrc/gmm_em.cu) on the card, ``_em_plain`` on the CPU, in slices of at
+most ``fused_gmm_em.BMAX`` models (``em_in_slices``). ``_em_plain`` is
 the JAX program's arithmetic in torch float32: ``n_iter`` lockstep rounds
 of a chunked E-step that accumulates the sufficient statistics (Nk, Sk,
 Qk) and a closed-form M-step, then a final log-likelihood pass.
@@ -136,6 +137,26 @@ def _em_plain(z, valid, w0, mu0, var0, comp_mask, n_iter, reg, chunk=2048):
     return (*params, stats(params)[3])
 
 
+def em_in_slices(z, counts, w0, mu0, var0, comp_mask, n_iter, reg,
+                 chunk=2048):
+    """``fused_gmm_em.gmm_em`` over the model axis in slices of at most
+    ``fused_gmm_em.BMAX`` models (the most one launch of kernel E takes),
+    concatenated in model order. Models are independent and neither the
+    kernel nor the twin sums across them, so the slices' outputs equal one
+    call's bit for bit."""
+    from . import fused_gmm_em
+    step = fused_gmm_em.BMAX
+    B = w0.shape[1]
+    if B <= step:
+        return fused_gmm_em.gmm_em(z, counts, w0, mu0, var0, comp_mask,
+                                   n_iter, reg, chunk=chunk)
+    parts = [fused_gmm_em.gmm_em(
+        z, counts, *(t[:, lo:lo + step].contiguous()
+                     for t in (w0, mu0, var0, comp_mask)),
+        n_iter, reg, chunk=chunk) for lo in range(0, B, step)]
+    return tuple(torch.cat(ts, dim=1) for ts in zip(*parts))
+
+
 def _init_params(z_groups, n_valid, ks, n_init, K, rng):
     """Host-side initial parameters for every (group, k-choice, restart).
 
@@ -200,8 +221,8 @@ def prepare(groups, ks, n_init, seed, chunk):
 def gmm_fit_batched(groups, ks, n_init=10, n_iter=100, reg=1e-6,
                     seed=0, chunk=2048, device="cuda"):
     """Fit 1D GMMs with every component count in ``ks`` to every data
-    group, n_init restarts each, in one launch of kernel E (its plain
-    twin with ``device="cpu"``).
+    group, n_init restarts each, in one launch of kernel E for every
+    ``fused_gmm_em.BMAX`` models (its plain twin with ``device="cpu"``).
 
     Arguments:
         groups: sequence of 1D arrays (may be ragged — each group is its
@@ -243,7 +264,6 @@ def gmm_fit_batched(groups, ks, n_init=10, n_iter=100, reg=1e-6,
             f"component count ({max(ks)}); a mixture needs n_samples >= "
             "n_components")
     dev = resolve_device(device)
-    from .fused_gmm_em import gmm_em
 
     G = len(groups)
     J = len(ks)
@@ -258,9 +278,9 @@ def gmm_fit_batched(groups, ks, n_init=10, n_iter=100, reg=1e-6,
         def put(a):
             return torch.from_numpy(a).to(dev)
 
-        out = gmm_em(put(z), put(n_valid.astype(np.int32)), put(w0),
-                     put(mu0), put(var0), put(comp_mask), int(n_iter),
-                     float(reg), chunk=chunk)
+        out = em_in_slices(put(z), put(n_valid.astype(np.int32)), put(w0),
+                           put(mu0), put(var0), put(comp_mask), int(n_iter),
+                           float(reg), chunk=chunk)
         w, mu, var, ll = (t.cpu().numpy().astype(np.float64) for t in out)
 
     with profiling.stage("gmm/select"):

@@ -1,15 +1,30 @@
-"""The experiment step over a [fields, cycles, H, W] stack, on one device.
+"""The experiment step over a [fields, cycles, H, W] stack, on one device
+or sharded over several.
 
-Counterpart of fluorosequencingimageanalysis_tpu/parallel/mesh.py
-``experiment_step_sharded`` for a single device (multi-GPU comes later).
-It returns the same dict of arrays, with the same dtypes.
+Counterpart of fluorosequencingimageanalysis_tpu/parallel/mesh.py:
+``make_mesh``, ``shard_fields`` and ``experiment_step_sharded``, with
+``experiment_step`` as the one-device step they share. The JAX package
+partitions one jitted program over a (data, model) device mesh; here a
+``Mesh`` is torch devices in a (data, model) grid, and
+``experiment_step_sharded`` runs ``experiment_step`` on each data shard's
+fields on that shard's devices, its detection split over the shard's
+model devices where the images divide. Fields are independent and the
+step has no collective, so the only data motion is each shard's upload
+and the gather of its results onto the mesh's first device.
+
+Each shard's step reads the host once per round of its non-max
+suppression (``ops/consolidate.py``), so the shards run one after the
+other on the calling thread; every shard's results stay on its device
+until all have run. Nothing here is timed on more than one card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..models.detect import detect_and_fit_batch
+from .._device import require_cuda, resolve_device
+from ..models.detect import SpotFindResult, detect_and_fit_batch
 from ..ops import photometry as phot_ops
 from ..ops.candidates import topk_lowest_index
 from ..ops.registration import phase_correlate_stack
@@ -19,13 +34,110 @@ PHOTOMETRY_METHODS = ("mexican_hat", "simple", "maximum", "gaussian_volume",
                       "sigmas")
 
 
+class Mesh:
+    """Torch devices in a (data, model) grid: ``devices`` is a numpy
+    object array of ``torch.device`` of shape (data, model),
+    ``axis_names == ("data", "model")`` and ``shape`` maps each axis name
+    to its size, as a ``jax.sharding.Mesh`` does."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, devices):
+        devices = np.asarray(devices, dtype=object)
+        if devices.ndim != 2 or devices.size == 0:
+            raise ValueError("a mesh needs a non-empty (data, model) grid "
+                             "of devices")
+        self.devices = devices
+
+    @property
+    def shape(self):
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self):
+        return self.devices.size
+
+
+def make_mesh(n_devices=None, data_axis=None, model_axis=None,
+              devices=None):
+    """A ('data', 'model') mesh over ``devices`` (default: every visible
+    CUDA device; raises without one), the first ``n_devices`` of them.
+
+    By default all devices go to 'data' (the fields axis); pass explicit
+    axis sizes for other splits. A device may appear more than once
+    (two shards on one card)."""
+    if devices is None:
+        require_cuda()
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [resolve_device(d) for d in devices]
+    if n_devices is None:
+        n_devices = len(devices)
+    if n_devices > len(devices):
+        raise ValueError(f"n_devices={n_devices} exceeds the "
+                         f"{len(devices)} devices given")
+    devices = devices[:n_devices]
+    if data_axis is None and model_axis is None:
+        data_axis, model_axis = n_devices, 1
+    elif data_axis is None:
+        data_axis = n_devices // model_axis
+    elif model_axis is None:
+        model_axis = n_devices // data_axis
+    if data_axis * model_axis != n_devices:
+        raise ValueError("data_axis * model_axis must equal n_devices")
+    grid = np.empty((data_axis, model_axis), dtype=object)
+    for i, dev in enumerate(devices):
+        grid[i // model_axis, i % model_axis] = dev
+    return Mesh(grid)
+
+
+def shard_fields(stack, mesh):
+    """A [fields, ...] array or tensor split on 'data': one tensor of
+    F / data fields per data shard, on that shard's first device. F must
+    divide by the data axis (``api.Pipeline`` pads for its callers)."""
+    if not isinstance(stack, torch.Tensor):
+        stack = torch.from_numpy(np.ascontiguousarray(stack))
+    n_data = mesh.shape["data"]
+    F = stack.shape[0]
+    if F % n_data:
+        raise ValueError(f"{F} fields do not split into {n_data} data "
+                         "shards; pad the fields axis to a multiple of the "
+                         "data axis")
+    share = F // n_data
+    return [stack[i * share:(i + 1) * share].to(mesh.devices[i, 0])
+            for i in range(n_data)]
+
+
+def experiment_step_sharded(stack, mesh, **step_kwargs):
+    """``experiment_step`` over a [F, C, H, W] stack sharded on ``mesh``:
+    each data shard's fields on that shard's devices, detection split
+    over its model devices where its F*C images divide by the model axis
+    (like the JAX step's joint image sharding); otherwise on the shard's
+    first device. Returns ``experiment_step``'s dict with the fields axis
+    whole and in order, on the mesh's first device. F must divide by the
+    data axis."""
+    shards = shard_fields(stack, mesh)
+    n_model = mesh.shape["model"]
+    outs = []
+    for i, x in enumerate(shards):
+        detect_devices = list(mesh.devices[i]) if n_model > 1 else None
+        with torch.no_grad():
+            outs.append(experiment_step(x, detect_devices=detect_devices,
+                                        **step_kwargs))
+    first = mesh.devices[0, 0]
+    return {k: torch.cat([o[k].to(first) for o in outs])
+            for k in outs[0]}
+
+
 def experiment_step(stack, median_filter_size=5, c_std=2.0,
                     r_2_threshold=0.7, consolidation_radius=4.0,
                     max_candidates=256, max_spots=None, num_iters=30,
                     theta_starts=1, correlation_matrix=None,
                     upsample_factor=20,
                     photometry_method="mexican_hat", photometry_radius=9,
-                    photometry_brim=6, photometry_min=None):
+                    photometry_brim=6, photometry_min=None,
+                    detect_devices=None):
     """One full experiment step over a [F, C, H, W] tensor on its device.
 
     Stages: registration of consecutive cycles per field; detection +
@@ -34,6 +146,9 @@ def experiment_step(stack, median_filter_size=5, c_std=2.0,
     [max_spots] bucket by R^2; photometry at the rounded kept centers.
     Integer stacks are cast to float32 on the device. correlation_matrix:
     the 5x5 detection template (None = DEFAULT_CORRELATION_MATRIX).
+    detect_devices: devices that split the F*C images' detection between
+    them, in order, when there are more than one and the count divides;
+    the results return to the stack's device.
 
     Returns a dict of tensors on the stack's device; see
     ``experiment_step_sharded`` in the JAX package for each key's meaning:
@@ -61,13 +176,23 @@ def experiment_step(stack, median_filter_size=5, c_std=2.0,
 
     # 2. Detection + fit over all (field, cycle) images at once.
     imgs = stack.reshape(F * C, H, W)
-    res = detect_and_fit_batch(
-        imgs, median_filter_size=median_filter_size,
-        correlation_matrix=correlation_matrix, c_std=c_std,
-        r_2_threshold=r_2_threshold,
-        consolidation_radius=consolidation_radius,
-        max_candidates=max_candidates, num_iters=num_iters,
-        theta_starts=theta_starts)
+    detect_kw = dict(median_filter_size=median_filter_size,
+                     correlation_matrix=correlation_matrix, c_std=c_std,
+                     r_2_threshold=r_2_threshold,
+                     consolidation_radius=consolidation_radius,
+                     max_candidates=max_candidates, num_iters=num_iters,
+                     theta_starts=theta_starts)
+    n_split = len(detect_devices) if detect_devices is not None else 1
+    if n_split > 1 and (F * C) % n_split == 0:
+        per = F * C // n_split
+        parts = [detect_and_fit_batch(imgs[j * per:(j + 1) * per].to(d),
+                                      **detect_kw)
+                 for j, d in enumerate(detect_devices)]
+        res = SpotFindResult(*(torch.cat([getattr(p, f).to(stack.device)
+                                          for p in parts])
+                               for f in SpotFindResult._fields))
+    else:
+        res = detect_and_fit_batch(imgs, **detect_kw)
     K = max_candidates
 
     # 3. Compact the kept fits into a [max_spots] bucket by R^2 (NaN R^2

@@ -721,9 +721,97 @@ def test_kernel_e_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         gmm_em(z, counts, w0.transpose(0, 1).contiguous().transpose(0, 1),
                mu0, var0, mask, 1, 1e-6)
-    big = [t.repeat(1, 1, 3) for t in (w0, mu0, var0, mask)]  # K = 9
-    with pytest.raises(ValueError, match="1 to 8"):
+    big = [torch.cat([t] + [t[..., :1]] * 254, dim=2)  # K = 257
+           for t in (w0, mu0, var0, mask)]
+    with pytest.raises(ValueError, match="1 to 256"):
         gmm_em(z, counts, *big, 1, 1e-6)
+
+
+@pytest.mark.parametrize("sizes,ks,n_init,permute", [
+    ((3000, 2000, 777), [2, 9], 3, False),       # K = 9, the smallest
+    ((2500, 1200), [5, 17], 2, True),            # K = 17, shuffled masks
+    ((4096, 1), [3, 33], 2, False)])             # K = 33, a group of 1 point
+def test_kernel_e_shared_memory_form_matches_twin(dev, sizes, ks, n_init,
+                                                  permute):
+    """K above the register form's 8: three EM rounds of the shared-memory
+    form, held to the twin at test_kernel_e_matches_twin's tolerances."""
+    from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import (
+        KREG, gmm_em)
+    z, counts, w0, mu0, var0, mask = _em_inputs(dev, sizes, ks, n_init,
+                                                 seed=len(sizes) + 7)
+    G, B, K = w0.shape
+    assert K > KREG
+    if permute:
+        rng = np.random.default_rng(9)
+        comp = torch.from_numpy(np.stack([rng.permutation(K)
+                                          for _ in range(B)])).to(dev)
+        idx = comp[None].expand(G, B, K)
+        w0, mu0, var0, mask = (t.gather(2, idx).contiguous()
+                               for t in (w0, mu0, var0, mask))
+    valid = (torch.arange(z.shape[1], device=dev)[None, :]
+             < counts[:, None].long()).float()
+    before = gmm_em.launches
+    got = gmm_em(z, counts, w0, mu0, var0, mask, 3, 1e-6)
+    again = gmm_em(z, counts, w0, mu0, var0, mask, 3, 1e-6)
+    torch.cuda.synchronize()
+    assert gmm_em.launches == before + 2
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, again))
+    want = gb._em_plain(z, valid, w0, mu0, var0, mask, 3, 1e-6)
+    g, w = ([t.double().cpu().numpy() for t in r] for r in (got, want))
+    act = mask.cpu().numpy()
+    assert (np.abs(g[3] - w[3]) <= 1e-5 * np.abs(w[3])).all()
+    assert (np.abs(g[1] - w[1])[act] <= 1e-3).all()
+    assert (np.abs(g[0] - w[0]) <= 1e-3).all()
+    assert (np.abs(g[2] - w[2])[act] <= np.maximum(
+        1e-3 * w[2], 1e-5 * (w[1] ** 2 + w[2]))[act]).all()
+    assert (g[0][~act] == 0).all() and (g[2][~act] == 1).all()
+
+
+def test_kernel_e_takes_every_k_and_b_without_the_twin(dev, monkeypatch):
+    """Fault F1: per_cycle_gmm(max_fluors=8) (K = 9) and gmm_fit_batched
+    over 4,200 models (> BMAX, two launches) run on the card with the twin
+    patched to raise, and pick the CPU twin's k; 50 models in two slices
+    equal one launch bit for bit."""
+    from fluorosequencingimageanalysis_torch.ops import fused_gmm_em
+    from fluorosequencingimageanalysis_torch.ops import gmm_batch as gb
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_gmm_photometries)
+    twin = gb._em_plain
+
+    def refuse(*a, **k):
+        raise AssertionError("the twin ran for a card call")
+
+    phot = make_gmm_photometries(3000, F=4, seed=3)
+    rng = np.random.default_rng(4)
+    group = [np.concatenate([rng.normal(0, 1, 2000),
+                             rng.normal(8, 1, 1000)])]
+    z, counts, w0, mu0, var0, mask = _em_inputs(dev, (3000,), [2, 3, 4],
+                                                 17, seed=5)
+    with monkeypatch.context() as m:
+        m.setattr(fused_gmm_em, "_em_plain", refuse)
+        m.setattr(gb, "_em_plain", refuse)
+        before = fused_gmm_em.gmm_em.launches
+        card = Pipeline(device="cuda").per_cycle_gmm(phot, max_fluors=8)
+        assert fused_gmm_em.gmm_em.launches == before + 1
+        big = gb.gmm_fit_batched(group, [2, 3], n_init=2100, n_iter=20,
+                                 device="cuda")
+        assert fused_gmm_em.gmm_em.launches == before + 3
+        one = gb.em_in_slices(z, counts, w0, mu0, var0, mask, 20, 1e-6)
+        m.setattr(fused_gmm_em, "BMAX", 26)
+        two = gb.em_in_slices(z, counts, w0, mu0, var0, mask, 20, 1e-6)
+        torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(one, two))
+    assert gb._em_plain is twin
+    cpu = Pipeline(device="cpu").per_cycle_gmm(phot, max_fluors=8)
+    for cycle in range(4):
+        assert card[0][cycle][1] == cpu[0][cycle][1]
+    small = gb.gmm_fit_batched(group, [2, 3], n_init=2100, n_iter=20,
+                               device="cpu")
+    assert (big["bic"].argmin(1) == small["bic"].argmin(1)).all()
+    np.testing.assert_allclose(big["loglik"], small["loglik"], rtol=1e-3)
 
 
 def test_mixture_fitters_on_the_card_match_cpu(dev):

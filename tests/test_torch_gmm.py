@@ -444,11 +444,72 @@ int run(int B, int n) {
                             nr[0], nr[1], act_b[b * K + k] != 0, &mu_k[k],
                             &var_k[k], &w_raw[k]);
     for (int k = 0; k < K; ++k)
-      gmm::component_finish<K>(w_raw, k, act_b[b * K + k] != 0, &w_k[k],
-                               &mu_k[k], &var_k[k]);
+      gmm::component_finish(w_raw, K, k, act_b[b * K + k] != 0, &w_k[k],
+                            &mu_k[k], &var_k[k]);
     fwrite(w_k, 4, K, stdout);
     fwrite(mu_k, 4, K, stdout);
     fwrite(var_k, 4, K, stdout);
+  }
+  return 0;
+}
+
+// As run<K>, for the shared-memory form's runtime K: each model's active
+// components' constants compacted in order, point_norm per point and
+// component_term per active component; the M-step for a runtime K.
+int run_runtime(int B, int K, int n) {
+  std::vector<float> w(B * K), mu(B * K), var(B * K), x(n);
+  std::vector<unsigned char> act_b(B * K);
+  std::vector<float> nk(B * K), sk(B * K), qk(B * K);
+  float nr[2];
+  if (fread(w.data(), 4, B * K, stdin) != (size_t)(B * K) ||
+      fread(mu.data(), 4, B * K, stdin) != (size_t)(B * K) ||
+      fread(var.data(), 4, B * K, stdin) != (size_t)(B * K) ||
+      fread(act_b.data(), 1, B * K, stdin) != (size_t)(B * K) ||
+      fread(x.data(), 4, n, stdin) != (size_t)n ||
+      fread(nk.data(), 4, B * K, stdin) != (size_t)(B * K) ||
+      fread(sk.data(), 4, B * K, stdin) != (size_t)(B * K) ||
+      fread(qk.data(), 4, B * K, stdin) != (size_t)(B * K) ||
+      fread(nr, 4, 2, stdin) != 2)
+    return 3;
+  std::vector<float> c2(K), cm(K), h2(K), resp(K);
+  for (int b = 0; b < B; ++b) {
+    int a = 0;
+    for (int k = 0; k < K; ++k) {
+      if (!act_b[b * K + k]) continue;
+      gmm::component_constants(w[b * K + k], var[b * K + k], true,
+                               HostLog(), &c2[a], &h2[a]);
+      cm[a++] = mu[b * K + k];
+    }
+    for (int i = 0; i < n; ++i) {
+      float mx, r;
+      const float lse = gmm::point_norm(c2.data(), cm.data(), h2.data(), a,
+                                        x[i], HostExp2(), HostLog(),
+                                        HostRcp(), &mx, &r);
+      for (int k = 0, j = 0; k < K; ++k) {
+        if (!act_b[b * K + k]) {
+          resp[k] = 0.0f;
+          continue;
+        }
+        resp[k] = gmm::component_term(c2[j], cm[j], h2[j], x[i], mx,
+                                      HostExp2()) * r;
+        ++j;
+      }
+      fwrite(&lse, 4, 1, stdout);
+      fwrite(resp.data(), 4, K, stdout);
+    }
+  }
+  std::vector<float> mu_k(K), var_k(K), w_raw(K), w_k(K);
+  for (int b = 0; b < B; ++b) {
+    for (int k = 0; k < K; ++k)
+      gmm::component_update(nk[b * K + k], sk[b * K + k], qk[b * K + k],
+                            nr[0], nr[1], act_b[b * K + k] != 0, &mu_k[k],
+                            &var_k[k], &w_raw[k]);
+    for (int k = 0; k < K; ++k)
+      gmm::component_finish(w_raw.data(), K, k, act_b[b * K + k] != 0,
+                            &w_k[k], &mu_k[k], &var_k[k]);
+    fwrite(w_k.data(), 4, K, stdout);
+    fwrite(mu_k.data(), 4, K, stdout);
+    fwrite(var_k.data(), 4, K, stdout);
   }
   return 0;
 }
@@ -468,6 +529,8 @@ int main() {
     case 7: return run<7>(hdr[0], hdr[2]);
     case 8: return run<8>(hdr[0], hdr[2]);
   }
+  if (hdr[1] > gmm::KREG && hdr[1] <= gmm::KMAX)
+    return run_runtime(hdr[0], hdr[1], hdr[2]);
   return 4;
 }
 """
@@ -500,12 +563,16 @@ def _log_stand_in(x):
 @pytest.mark.parametrize("B,K,n,seed", [(7, 3, 300, 0), (5, 6, 257, 1),
                                         (4, 1, 100, 2), (3, 8, 64, 3),
                                         (6, 5, 128, 4), (2, 2, 33, 5),
-                                        (5, 4, 96, 6), (4, 7, 80, 7)])
+                                        (5, 4, 96, 6), (4, 7, 80, 7),
+                                        (4, 9, 90, 8), (3, 12, 70, 9),
+                                        (3, 17, 64, 10), (3, 33, 40, 11)])
 def test_kernel_arithmetic_equals_the_twin_bit_for_bit(harness, B, K, n,
                                                        seed):
-    """Every K the kernel takes; a far point whose exp2 underflows to 0 in
-    every component but the nearest; a model with one active component
-    (its sum is that one term); a mask that is not a prefix."""
+    """Every K of the register form (1-8) and K = 9, 12, 17 and 33 of the
+    shared-memory form (point_norm and component_term, the constants
+    compacted); a far point whose exp2 underflows to 0 in every component
+    but the nearest; a model with one active component (its sum is that
+    one term); a mask that is not a prefix."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     act = np.zeros((B, K), bool)
@@ -620,3 +687,73 @@ def test_subset_split_equals_the_plain_rule(harness, nact, S, mmax):
     blocks = [np.nonzero(subset == s)[0] for s in range(S)]
     assert all((np.diff(m) > 0).all() for m in blocks)
     assert sorted(np.concatenate(blocks).tolist()) == list(range(len(nact)))
+
+
+# -- fault F1: more components than eight and more models than BMAX ---------
+
+def test_model_slices_equal_one_call_bit_for_bit(monkeypatch):
+    """50 models in slices of 20 (20, 20, 10) equal one call of the twin
+    bit for bit, and gmm_fit_batched with BMAX patched to 7 equals it
+    unpatched: models are independent, so slicing changes no bit."""
+    rng = np.random.default_rng(11)
+    groups = [_mixture(rng, [0.0, 4.0, 9.0], [0.5, 0.6, 0.7],
+                       [300, 200, 250]), rng.normal(2.0, 1.0, 500)]
+    z, _, n_valid, _, _ = _standardised(groups, CHUNK)
+    starts = gb._init_params([z[g] for g in range(2)], n_valid,
+                             [1, 2, 3, 4, 5], 10, 5,
+                             np.random.default_rng(0))
+    args = [torch.from_numpy(a) for a in
+            (z, n_valid.astype(np.int32), *starts)]
+    one = gb.em_in_slices(*args, 5, 1e-6, chunk=CHUNK)
+    with monkeypatch.context() as m:
+        m.setattr(fused_gmm_em, "BMAX", 20)
+        sliced = gb.em_in_slices(*args, 5, 1e-6, chunk=CHUNK)
+    assert one[0].shape == (2, 50, 5)
+    for a, b in zip(one, sliced):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    kw = dict(n_init=6, n_iter=20, seed=1, chunk=CHUNK, device="cpu")
+    want = gb.gmm_fit_batched(groups, [1, 2, 3], **kw)
+    monkeypatch.setattr(fused_gmm_em, "BMAX", 7)
+    got = gb.gmm_fit_batched(groups, [1, 2, 3], **kw)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_nine_and_ten_components_equal_the_jax_packages():
+    """ks = [9, 10], the shared-memory form's range on the card: the
+    twin's fits equal the JAX package's within the stated tolerances."""
+    rng = np.random.default_rng(12)
+    groups = [_mixture(rng, np.arange(10) * 6.0, np.full(10, 0.8),
+                       np.full(10, 270)) for _ in range(2)]
+    kw = dict(n_init=3, n_iter=20, seed=3, chunk=CHUNK)
+    want = jax_gb.gmm_fit_batched(groups, [9, 10], **kw)
+    got = gb.gmm_fit_batched(groups, [9, 10], device="cpu", **kw)
+    _, _, _, mean, std = _standardised(groups, CHUNK)
+    s, m = std[:, None, None], mean[:, None, None]
+    active = want["weights"] > 0
+    ll_w = want["loglik"] + (want["counts"] * np.log(std))[:, None]
+    ll_g = got["loglik"] + (want["counts"] * np.log(std))[:, None]
+    oks = _close(ll_w, ll_g, (want["means"] - m) / s, (got["means"] - m) / s,
+                 want["vars"] / s ** 2, got["vars"] / s ** 2,
+                 want["weights"], got["weights"], active)
+    for what, ok in zip(("loglik", "means", "vars", "weights"), oks):
+        assert ok.all(), (what, np.argwhere(~ok)[:5])
+    np.testing.assert_allclose(got["bic"], want["bic"], rtol=2 * LL_REL,
+                               atol=0)
+
+
+def test_per_cycle_gmm_up_to_eight_fluors_equals_the_jax_packages():
+    """max_fluors=8 (k 2-9, K = 9): the port's Pipeline picks the JAX
+    Pipeline's k in every cycle, each fit within the stated tolerances."""
+    from fluorosequencingimageanalysis_tpu.api import Pipeline as JaxPipeline
+
+    rng = np.random.default_rng(6)
+    phot = {"ch1": {0: {}}}
+    for t in range(900):  # nine intensity levels, 0-8 fluors, 3 cycles
+        lv = rng.integers(0, 9, 3)
+        ints = tuple(float(rng.normal(2000 + 30000 * v, 300 + 1000 * v))
+                     for v in lv)
+        phot["ch1"][0][(10 + t, 20)] = (tuple(lv > 0), ints, t)
+    kw = dict(min_fluors=1, max_fluors=8, n_init=2)
+    _same_per_cycle(Pipeline(device="cpu").per_cycle_gmm(phot, **kw),
+                    JaxPipeline().per_cycle_gmm(phot, **kw))

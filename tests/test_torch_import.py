@@ -90,11 +90,28 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.compat.basic_image_script",
     "fluorosequencingimageanalysis_torch.compat.basic_experiment_script",
     "fluorosequencingimageanalysis_torch.compat.basic_timetrace_script",
+    "fluorosequencingimageanalysis_torch.compat.cross_correlation",
+    "fluorosequencingimageanalysis_torch.compat.mpfitexpr",
+    "fluorosequencingimageanalysis_torch.compat.gaussfitter",
+    "fluorosequencingimageanalysis_torch.compat.psf_fitter",
+    "fluorosequencingimageanalysis_torch.compat.MCsimlib",
+    "fluorosequencingimageanalysis_torch.compat.peptide_simulator",
+    "fluorosequencingimageanalysis_torch.compat.jupyter_development",
+    "fluorosequencingimageanalysis_torch.compat.simulate_peptide",
+    "fluorosequencingimageanalysis_torch.compat.lognormal_fitter_v2",
+    "fluorosequencingimageanalysis_torch.compat.iterative_background_v2",
+    "fluorosequencingimageanalysis_torch.compat.remainder_correction",
+    "fluorosequencingimageanalysis_torch.compat._on_default_device",
+    "fluorosequencingimageanalysis_torch.parallel.multihost",
 ]
 COMPAT_MODULES = ["pflib", "flexlibrary", "phase_correlate",
                   "stepfitting_library", "mpfit", "plotting",
                   "basic_image_script", "basic_experiment_script",
-                  "basic_timetrace_script"]
+                  "basic_timetrace_script", "cross_correlation",
+                  "mpfitexpr", "gaussfitter", "psf_fitter", "MCsimlib",
+                  "peptide_simulator", "jupyter_development",
+                  "simulate_peptide", "lognormal_fitter_v2",
+                  "iterative_background_v2", "remainder_correction"]
 
 
 def test_port_imports_and_runs_with_jax_blocked():
@@ -435,6 +452,28 @@ def test_build_keeps_ptxas_report_and_hashes_headers(tmp_path, monkeypatch):
     assert all(os.path.exists(p) for p in built)
     assert not [f for f in os.listdir(tmp_path / "_build")
                 if f.endswith(".tmp")]
+
+
+def test_ptxas_kernels_reports_each_instantiation(tmp_path, monkeypatch):
+    _fake_tree(
+        tmp_path, monkeypatch,
+        'echo "ptxas info    : Compiling entry function \'_Z2k1ILi6EEv\' '
+        'for \'sm_90a\'" >&2\n'
+        'echo "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill'
+        ' loads" >&2\n'
+        'echo "ptxas info    : Used 64 registers, used 1 barriers" >&2\n'
+        'echo "ptxas info    : Compiling entry function \'_Z3k_smv\' for '
+        '\'sm_90a\'" >&2\n'
+        'echo "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill'
+        ' loads" >&2\n'
+        'echo "ptxas info    : Used 90 registers, used 1 barriers" >&2\n'
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo built > "$2"\n')
+    _build.build("k")
+    assert _build.ptxas_kernels("k") == {
+        "_Z2k1ILi6EEv": {"registers": 64, "spill_bytes": 0},
+        "_Z3k_smv": {"registers": 90, "spill_bytes": 12}}
+    assert _build.ptxas_info("k") == {"registers": 90, "spill_bytes": 12}
 
 
 def test_ptxas_info_raises_without_a_register_count(tmp_path, monkeypatch):
@@ -924,14 +963,21 @@ def _module_without(path, names):
     ("stepfitting_library", []), ("mpfit", []), ("plotting", []),
     ("basic_image_script", ["build_parser", "main"]),
     ("basic_experiment_script", ["build_parser", "main"]),
-    ("basic_timetrace_script", ["build_parser", "main"])])
+    ("basic_timetrace_script", ["build_parser", "main"]),
+    ("cross_correlation", []), ("mpfitexpr", []),
+    ("gaussfitter", ["gaussfit"]), ("psf_fitter", []), ("MCsimlib", []),
+    ("peptide_simulator", []), ("jupyter_development", []),
+    ("simulate_peptide", ["build_parser", "main"]),
+    ("lognormal_fitter_v2", ["build_parser", "main"]),
+    ("iterative_background_v2", []), ("remainder_correction", [])])
 def test_compat_modules_are_the_root_shims(name, differs):
     """Each compat module is the repo's root module of that name with its
     imports pointed at the port: the same code apart from imports and
-    docstrings, but for the two pflib functions that take their tensors to
-    the device, and the apps' ``--device`` (the parser gains it, ``main``
-    sets the default device from it). The parsers are held equal option
-    by option."""
+    docstrings, but for the two pflib functions and gaussfitter's
+    ``gaussfit`` (its 5x5 path), which take their tensors to the device,
+    and the device apps' ``--device`` (the parser gains it, ``main`` sets
+    the default device from it). The parsers are held equal option by
+    option."""
     port_path = os.path.join(PORT_DIR, "compat", name + ".py")
     root_path = os.path.join(REPO, name + ".py")
     assert _module_without(port_path, differs) == \
