@@ -249,6 +249,8 @@ D_OPS_PER_PIXEL = 19
 # device list and through multihost.run_experiment in PAR_PROCS processes
 # (gloo, one card), each child given PAR_CHILD_TIMEOUT_S seconds.
 PAR_SHARDS, PAR_F, PAR_PROCS, PAR_CHILD_TIMEOUT_S = 2, 8, 2, 300
+# Samples a peptide of simulate_signals on a device list (host work).
+PAR_SIM_SIGNALS = 20_000
 # Photometry of the card against the CPU: float32 sums of ~2e4 in another
 # order differ by a few ulp (2e-3 each), which a value near 0 cannot absorb
 # relatively.
@@ -1302,6 +1304,24 @@ def zstack_phases(tmpl, dev):
                             "exhaustive_chunk": b_numbers(b_chunk)}}}
 
 
+def same_result(a, b):
+    """Two results of one function equal bit for bit: containers item by
+    item, arrays with their dtypes and shapes, NaN where NaN."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b) and
+                all(same_result(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b) and
+                all(same_result(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and
+                a.shape == b.shape and
+                np.array_equal(a, b, equal_nan=a.dtype.kind in "fc"))
+    if isinstance(a, (float, np.floating)) and np.isnan(a):
+        return isinstance(b, (float, np.floating)) and bool(np.isnan(b))
+    return type(a) is type(b) and bool(a == b)
+
+
 def same_plateaus(a, b):
     """Two plateau lists: starts and stops equal, heights within 1e-9."""
     return ([p[:2] for p in a] == [p[:2] for p in b] and
@@ -2053,7 +2073,9 @@ def fluor_phases(dev, ptxas, experiment_csv):
                 k: v for k, v in summary.items() if k in (
                     "signals_in", "signals_out", "counts_in", "counts_out",
                     "rows", "method")})
-    return {"launches": launches, "kernels": {"v8_score": numbers}}
+    return {"launches": launches, "kernels": {"v8_score": numbers},
+            "calibrated": {"result": cal, "wall_s": cal_s,
+                           "launches": launches["fluor_counts_calibrated"]}}
 
 
 def _tvd(a, b):
@@ -2860,7 +2882,7 @@ def mixtures_phases(dev, ptxas):
     limits = gmm_limits_phase(dev, phot)
     return {"launches": {"per_cycle_gmm": runs[0]["launches"],
                          **limits["launches"]},
-            "kernels": {"gmm_em": e_numbers}}
+            "kernels": {"gmm_em": e_numbers}, "photometries": phot}
 
 
 def em_against_twin(dev, groups, ks, n_init, n_iter, reg=1e-6, full=True,
@@ -3136,17 +3158,20 @@ def gmm_limits_phase(dev, phot):
                          {"gmm_em": pcg_launches}}}
 
 
-def parallel_phases(dev, stack4=None):
+def parallel_phases(dev, stack4=None, calibrated=None, gmm_phot=None):
     """The multi-device layer on one card: ``experiment_step_sharded`` over
     a mesh of PAR_SHARDS entries of the card on the headline stack,
     against ``experiment_step`` bit for bit (each field's work is its own);
     ``Pipeline`` over that device list on config 4's first PAR_F fields
     (``stack4``, else made here), its CSV against the one-device
-    Pipeline's; and ``multihost.run_experiment`` in PAR_PROCS processes
+    Pipeline's; ``multihost.run_experiment`` in PAR_PROCS processes
     (gloo, all on the card, PAR_F / PAR_PROCS fields each), every child's
-    CSV byte for byte the one-process CSV. The multi-card case is not
-    timed: the machine has one card. Emits "parallel_step",
-    "parallel_pipeline" and "multihost"; returns the kernels' launches."""
+    CSV byte for byte the one-process CSV; and every other method that
+    shards (``parallel_methods_phase``, with the fluor group's calibrated
+    run and the mixtures group's photometries where those ran). The
+    multi-card case is not timed: the machine has one card. Emits
+    "parallel_step", "parallel_pipeline", "multihost" and
+    "parallel_methods"; returns the kernels' launches."""
     from fluorosequencingimageanalysis_torch.api import Pipeline
     from fluorosequencingimageanalysis_torch.config import (
         DetectConfig, PhotometryConfig, PipelineConfig, RegistrationConfig)
@@ -3282,7 +3307,211 @@ def parallel_phases(dev, stack4=None):
          note="wall: both children from spawn to exit (start-up, the "
               "kernels' load, the group's set-up and the run)")
     check(all(equal), f"every process's CSV is the one-process CSV: {equal}")
+    launches.update(parallel_methods_phase(dev, calibrated, gmm_phot))
     return {"launches": launches, "kernels": {}}
+
+
+def parallel_methods_phase(dev, calibrated=None, gmm_phot=None):
+    """Every other ``Pipeline`` method that shards, on a device list of
+    PAR_SHARDS entries of the card against the card alone, at the cells'
+    full sizes: config 2's z-stack (lean), the timetrace movie with its
+    CSV, config 3's traces through ``stepfit``, config 5's track CSV
+    through ``fluor_counts`` and ``fluor_counts_calibrated`` (the one-device
+    calibrated run is the fluor group's, ``calibrated``, where it ran in
+    this call), the mixtures' photometries (``gmm_phot``, else made here)
+    through ``per_cycle_gmm``, and ``simulate_signals`` on two peptides
+    (host work). One "parallel_methods" line a method: both walls (host
+    clock; the shares run one after the other on the one card), the
+    launches of kernels A, B, C and E in each call, and whether the two
+    results are equal bit for bit (each row's work is its own). Fails
+    after the last line if any result differs or a launch count is not
+    the expected one; returns the launches of the kernels each path
+    drove."""
+    from fluorosequencingimageanalysis_torch.api import (GROUP_FRAMES,
+                                                         Pipeline)
+    from fluorosequencingimageanalysis_torch.config import (
+        LognormalConfig, PipelineConfig, StepfitConfig)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.ops.fused_gmm_em import gmm_em
+    from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
+        v8_score_fused)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_gmm_photometries, make_movie, make_step_traces,
+        make_v8_workload, make_zstack)
+
+    wrappers = {"candidate_map": candidate_map_fused,
+                "fit_quality": fit_quality, "v8_score": v8_score_fused,
+                "gmm_em": gmm_em}
+    devices = [dev] * PAR_SHARDS
+
+    def run(fn):
+        """fn() with every count set to 0 just before: (its result, the
+        host-clock wall to the device's end, the launches)."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t,
+                {k: w.launches for k, w in wrappers.items()})
+
+    launches, failed = {}, []
+
+    def report(method, one, multi, equal, expect_one, expect, **extra):
+        """One line for a method; ``one``/``multi``: (result, wall,
+        launches); ``expect_one``/``expect``: the launches the card alone
+        and the device list must show."""
+        kernels = [k for k in wrappers if one[2][k] or multi[2][k]]
+        launches["parallel_methods_" + method] = {
+            k: multi[2][k] for k in kernels}
+        launches["parallel_methods_" + method + "_one_device"] = {
+            k: one[2][k] for k in kernels}
+        emit("parallel_methods", method=method, shards=PAR_SHARDS,
+             one_device_s=one[1], device_list_s=multi[1],
+             launches={"one_device": one[2], "device_list": multi[2]},
+             expected_launches={"one_device": expect_one,
+                                "device_list": expect},
+             equal=equal, **extra,
+             note="host clock to the device's end; the device list repeats "
+                  "the one card, so its shares run one after the other")
+        if not equal:
+            failed.append(f"{method}: the device list's result differs")
+        if (one[2], multi[2]) != (expect_one, expect):
+            failed.append(f"{method}: launches {one[2]} and {multi[2]}, "
+                          f"expected {expect_one} and {expect}")
+
+    def expect(**n):
+        return {k: n.get(k, 0) for k in wrappers}
+
+    # Config 2: the z-stack, its groups of GROUP_FRAMES frames dealt to
+    # the devices in turn.
+    frames = make_zstack(Z_T, HW, HW)
+    kw = dict(max_candidates=Z_K, lean=True, max_spots=Z_S)
+    pipes = Pipeline(device=dev), Pipeline(device=devices)
+    for p in pipes:
+        p.run_zstack(frames[:GROUP_FRAMES * PAR_SHARDS], **kw)
+    one, multi = (run(lambda p=p: p.run_zstack(frames, **kw)) for p in pipes)
+    groups = -(-Z_T // GROUP_FRAMES)
+    report("run_zstack", one, multi, same_result(one[0], multi[0]),
+           expect(candidate_map=groups, fit_quality=groups),
+           expect(candidate_map=groups, fit_quality=groups),
+           frames=Z_T, max_candidates=Z_K, max_spots=Z_S,
+           frames_per_s={"one_device": Z_T / one[1],
+                         "device_list": Z_T / multi[1]})
+    # A ragged stack (a short last group) already on the card: the device
+    # list runs it in the groups of frames from the host.
+    ragged = frames[:Z_T - GROUP_FRAMES // 2]
+    resident = torch.from_numpy(ragged).to(dev)
+    one = run(lambda: pipes[0].run_zstack(ragged, **kw))
+    multi = run(lambda: pipes[1].run_zstack(resident, **kw))
+    groups = -(-len(ragged) // GROUP_FRAMES)
+    report("run_zstack_ragged_resident", one, multi,
+           same_result(one[0], multi[0]),
+           expect(candidate_map=groups, fit_quality=groups),
+           expect(candidate_map=groups, fit_quality=groups),
+           frames=len(ragged), max_candidates=Z_K, max_spots=Z_S)
+    del frames, resident
+
+    # The timetrace movie: tracks split over the list (the two-step path)
+    # against the fused one-device path; the CSV's bytes.
+    movie = make_movie(T=TT_T, H=HW, W=HW, n_spots=TT_SPOTS)
+    kw = dict(max_candidates=None, **SF_KW)
+    pipes = Pipeline(device=dev), Pipeline(device=devices)
+    with tempfile.TemporaryDirectory() as tmp:
+        res = []
+        for name, p in zip(("one", "multi"), pipes):
+            path = os.path.join(tmp, name + ".csv")
+            out, wall, n = run(lambda p=p, path=path: p.run_timetrace(
+                movie, csv_path=path, **kw))
+            with open(path, "rb") as fh:
+                res.append(((out, fh.read()), wall, n))
+    (a, csv_a), (b, csv_b) = res[0][0], res[1][0]
+    equal = a["trace_count"] > 0 and same_result(
+        (a["traces"], a["photometries"], csv_a),
+        (b["traces"], b["photometries"], csv_b))
+    detect_ok = res[0][2]["candidate_map"] == 1 and \
+        res[0][2]["fit_quality"] >= 1
+    report("run_timetrace", res[0], res[1], equal and detect_ok,
+           res[0][2], res[0][2],
+           frames=TT_T, traces=a["trace_count"], csv_bytes=len(csv_a),
+           csv_equal=csv_a == csv_b)
+    del movie
+
+    # Config 3: step fitting, no kernel of A-E.
+    traces = make_step_traces(SF_N, SF_T)
+    cfg = PipelineConfig(stepfit=StepfitConfig(**SF_KW))
+    one, multi = (run(lambda p=p: p.stepfit(traces)) for p in (
+        Pipeline(cfg, device=dev), Pipeline(cfg, device=devices)))
+    report("stepfit", one, multi, same_result(one[0], multi[0]), expect(),
+           expect(),
+           traces=SF_N, frames=SF_T)
+
+    # Config 5's track CSV: kernel C once a device where one chunk holds
+    # every trace.
+    cfg = PipelineConfig(lognormal=LognormalConfig(max_possible=V8_K,
+                                                   allow_multidrop=True))
+    pipes = Pipeline(cfg, device=dev), Pipeline(cfg, device=devices)
+    fit_kw = dict(beta=V8_BETA, beta_sigma=V8_BETA_SIGMA)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tracks.csv")
+        write_v8_tracks_csv(path, *make_v8_workload(FC_ROWS, V8_F, V8_K,
+                                                    seed=1)[:2])
+        one, multi = (run(lambda p=p: p.fluor_counts(path, **fit_kw))
+                      for p in pipes)
+        report("fluor_counts", one, multi, same_result(one[0], multi[0]),
+               expect(v8_score=1), expect(v8_score=PAR_SHARDS),
+               rows=FC_ROWS)
+        multi = run(lambda: pipes[1].fluor_counts_calibrated(path))
+        if calibrated is None:
+            one = run(lambda: pipes[0].fluor_counts_calibrated(path))
+            reused = False
+        else:
+            one = (calibrated["result"], calibrated["wall_s"],
+                   expect(**calibrated["launches"]))
+            reused = True
+    report("fluor_counts_calibrated", one, multi,
+           same_result(one[0], multi[0]), expect(v8_score=2),
+           expect(v8_score=2 * PAR_SHARDS), rows=FC_ROWS,
+           one_device_from_fluor_group=reused)
+
+    # The mixtures: the models over the list, kernel E once a device.
+    if gmm_phot is None:
+        gmm_phot = make_gmm_photometries(GMM_T, GMM_F)
+    pipes = Pipeline(device=dev), Pipeline(device=devices)
+    one, multi = (run(lambda p=p: p.per_cycle_gmm(gmm_phot)) for p in pipes)
+
+    def fits(res):
+        scores, all_fits, raw = res
+        return ([(nf, bic) for _, nf, bic, _ in scores.values()],
+                [[(f.means_, f.covars_, f.weights_, f._loglik)
+                  for f in fs] for fs in all_fits.values()],
+                list(raw.values()))
+    report("per_cycle_gmm", one, multi,
+           same_result(fits(one[0]), fits(multi[0])), expect(gmm_em=1),
+           expect(gmm_em=PAR_SHARDS), traces=GMM_T,
+           cycles=GMM_F)
+
+    # simulate_signals: host work whatever the devices.
+    n_cycles = SIM_MOCKS + SIM_EDMANS
+    peptides = {"P1": ((SIM_SEQ, ""),), "P2": (("AKCAKDCKA", "KC"),)}
+    windows = {"C": tuple(range(1, n_cycles + 1)),
+               "K": tuple(range(1, n_cycles + 1))}
+    args = (peptides, SIM_PARAMS["p"], SIM_PARAMS["b"], SIM_PARAMS["u"],
+            windows)
+    one, multi = (run(lambda p=p: sorted(
+        (sig, sorted(dict(c).items())) for sig, c, _ in p.simulate_signals(
+            *args, sample_size=PAR_SIM_SIGNALS,
+            random_seed=1).leaf_iterator()))
+        for p in (Pipeline(device=dev), Pipeline(device=devices)))
+    report("simulate_signals", one, multi,
+           bool(one[0]) and same_result(one[0], multi[0]), expect(),
+           expect(), peptides=2, samples=2 * PAR_SIM_SIGNALS)
+    check(not failed, f"parallel_methods: {failed}")
+    return launches
 
 
 def multihost_child(spec):
@@ -3647,8 +3876,10 @@ def main():
         done["sim"] = sim_phases(tmpl, dev, ptxas)
     if "mixtures" in phases:  # the per-cycle mixtures and batched fitters
         done["mixtures"] = mixtures_phases(dev, ptxas)
+    gmm_phot = done.get("mixtures", {}).pop("photometries", None)
     if "parallel" in phases:  # the sharded step, a device list, multihost
-        done["parallel"] = parallel_phases(dev, stack4)
+        done["parallel"] = parallel_phases(
+            dev, stack4, done.get("fluor", {}).get("calibrated"), gmm_phot)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_summary(done, ptxas)}), flush=True)

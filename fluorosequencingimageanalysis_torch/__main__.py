@@ -3,7 +3,9 @@
 Counterpart of fluorosequencingimageanalysis_tpu/__main__.py over the
 port's api.Pipeline, with the subcommands whose paths the port has, the
 same flags and the same JSON summaries, plus ``--device`` (default cuda)
-on the subcommands that use a device:
+on the subcommands that use a device; run-experiment, zstack, timetrace,
+stepfit and fluor-counts also take a comma-separated list of devices and
+shard over it, as the JAX CLI shards over every local device:
 
     python -m fluorosequencingimageanalysis_torch run-experiment \\
         --peptide-files cycle_*/field_*.png --output-dir out
@@ -69,6 +71,20 @@ def _load_stack(files):
     return stack, stack.shape[1]
 
 
+def _devices(text, many=True):
+    """``--device`` as the Pipeline takes it: one device or, where the
+    subcommand's method shards (``many``), a comma-separated list of them
+    (``cuda:0,cuda:1``; the counterpart of the JAX CLI's default mesh over
+    every local device)."""
+    names = [d.strip() for d in text.split(",") if d.strip()]
+    if not names:
+        raise SystemExit(f"--device: no device in {text!r}")
+    if len(names) > 1 and not many:
+        raise SystemExit(f"--device: this subcommand runs on one device, "
+                         f"got {text!r}")
+    return names if len(names) > 1 else names[0]
+
+
 def _method_override(args):
     """--photometry-method as a from_cli override, only when given.
 
@@ -101,8 +117,8 @@ def _cmd_run_experiment(args):
         detect=DetectConfig.from_cli(args.detect_parameters),
         photometry=PhotometryConfig.from_cli(
             args.photometry_parameters, **_method_override(args)))
-    pipe = Pipeline(config=config, device=args.device, store=store,
-                    profile=args.profile)
+    pipe = Pipeline(config=config, device=_devices(args.device),
+                    store=store, profile=args.profile)
     os.makedirs(args.output_dir, exist_ok=True)
     csv_path = os.path.join(args.output_dir, args.csv)
     category_csv_path = os.path.join(args.output_dir, args.category_csv)
@@ -139,7 +155,7 @@ def _cmd_detect(args):
     the basic_image_script workflow on the device detector."""
     from .batch import image_batch
 
-    params = {"device": args.device}
+    params = {"device": _devices(args.device, many=False)}
     if args.max_candidates is not None:
         params["max_candidates"] = args.max_candidates
     if args.c_std is not None:
@@ -191,8 +207,8 @@ def _cmd_zstack(args):
     if args.store:
         from .utils.checkpoint import ArtifactStore
         store = ArtifactStore(args.store)
-    pipe = Pipeline(PipelineConfig(detect=det), device=args.device,
-                    store=store)
+    pipe = Pipeline(PipelineConfig(detect=det),
+                    device=_devices(args.device), store=store)
     out = pipe.run_zstack(stack, box_size=args.box_size,
                           filter_size=args.filter_size,
                           return_background=args.background_npy is not None)
@@ -229,7 +245,8 @@ def _cmd_timetrace(args):
     config = PipelineConfig(
         photometry=PhotometryConfig.from_cli(
             args.photometry_parameters, **_method_override(args)))
-    pipe = Pipeline(config=config, device=args.device, profile=args.profile)
+    pipe = Pipeline(config=config, device=_devices(args.device),
+                    profile=args.profile)
     os.makedirs(args.output_dir, exist_ok=True)
     csv_path = os.path.join(args.output_dir, args.csv)
     out = pipe.run_timetrace(
@@ -263,7 +280,8 @@ def _cmd_simulate(args):
         args.sequence, args.labels, num_mocks=args.num_mocks,
         num_edmans=args.num_edmans, num_simulations=args.num_sims,
         seed=args.seed, beta=args.fluor_intensity,
-        beta_sigma=args.beta_sigma, ddif=ddif, device=args.device,
+        beta_sigma=args.beta_sigma, ddif=ddif,
+        device=_devices(args.device, many=False),
         p=args.edman_efficiency,
         b=-math.log(1.0 - args.dye_destruction),
         u=args.dud_dyes,
@@ -326,11 +344,13 @@ def _cmd_stepfit(args):
         import torch
 
         from . import stepfitting as sflib
-        from ._device import resolve_device
         from .ops.stepfit_batch import chung_kennedy_batch
+        from .parallel.mesh import data_devices
 
         work = phot
-        dev = resolve_device(args.device)
+        # The smoothing passes run on one device, the first of a list, as
+        # the JAX package's subcommand runs them on its default device.
+        dev = data_devices(_devices(args.device))[0]
         for _ in range(args.chung_kennedy):
             # float32 smoothing passes, as the JAX package's subcommand.
             work = chung_kennedy_batch(torch.from_numpy(
@@ -349,8 +369,8 @@ def _cmd_stepfit(args):
     else:
         pipe = Pipeline(PipelineConfig(stepfit=StepfitConfig(
             mirror_start=args.mirror_start, chung_kennedy=args.chung_kennedy,
-            p_threshold=args.p_threshold)), device=args.device,
-            profile=args.profile)
+            p_threshold=args.p_threshold)),
+            device=_devices(args.device), profile=args.profile)
         results = pipe.stepfit(phot)
 
     os.makedirs(args.output_dir, exist_ok=True)
@@ -394,7 +414,8 @@ def _cmd_fluor_counts(args):
     # these flags and fit with the library's multidrop-off default.
     pipe = Pipeline(PipelineConfig(lognormal=LognormalConfig(
         max_possible=args.max_possible,
-        allow_multidrop=not args.no_multidrop)), device=args.device)
+        allow_multidrop=not args.no_multidrop)),
+        device=_devices(args.device))
     if args.auto_calibrate:
         signals, total, none_count, fit_info, calibration = \
             pipe.fluor_counts_calibrated(
@@ -606,8 +627,9 @@ def build_parser():
                          "are content-hash cached there, so re-runs with "
                          "unchanged inputs skip the device step")
     pe.add_argument("--device", default="cuda",
-                    help="where the work runs: cuda (default), cuda:N "
-                         "or cpu")
+                    help="where the work runs: cuda (default), cuda:N, "
+                         "cpu, or a comma-separated list (cuda:0,cuda:1) "
+                         "to shard over")
     pe.set_defaults(func=_cmd_run_experiment)
 
     det = sub.add_parser(
@@ -651,8 +673,9 @@ def build_parser():
     zs.add_argument("--store", default=None,
                     help="artifact-store directory for run caching")
     zs.add_argument("--device", default="cuda",
-                    help="where the work runs: cuda (default), cuda:N "
-                         "or cpu")
+                    help="where the work runs: cuda (default), cuda:N, "
+                         "cpu, or a comma-separated list (cuda:0,cuda:1) "
+                         "to shard over")
     zs.set_defaults(func=_cmd_zstack)
 
     tt = sub.add_parser(
@@ -686,8 +709,9 @@ def build_parser():
                     help="t-test merge p threshold")
     tt.add_argument("--profile", action="store_true")
     tt.add_argument("--device", default="cuda",
-                    help="where the work runs: cuda (default), cuda:N "
-                         "or cpu")
+                    help="where the work runs: cuda (default), cuda:N, "
+                         "cpu, or a comma-separated list (cuda:0,cuda:1) "
+                         "to shard over")
     tt.set_defaults(func=_cmd_timetrace)
 
     sim = sub.add_parser(
@@ -756,8 +780,9 @@ def build_parser():
                          "the best step-indicator S")
     sf.add_argument("--profile", action="store_true")
     sf.add_argument("--device", default="cuda",
-                    help="where the work runs: cuda (default), cuda:N "
-                         "or cpu")
+                    help="where the work runs: cuda (default), cuda:N, "
+                         "cpu, or a comma-separated list (cuda:0,cuda:1) "
+                         "to shard over (chi_squared smooths on the first)")
     sf.set_defaults(func=_cmd_stepfit)
 
     fc = sub.add_parser("fluor-counts",
@@ -796,8 +821,9 @@ def build_parser():
     fc.add_argument("--signals-pkl", default=None,
                     help="dump the signals dict to this pkl")
     fc.add_argument("--device", default="cuda",
-                    help="where the scoring runs: cuda (default), cuda:N "
-                         "or cpu")
+                    help="where the scoring runs: cuda (default), cuda:N, "
+                         "cpu, or a comma-separated list (cuda:0,cuda:1) "
+                         "to shard over")
     fc.set_defaults(func=_cmd_fluor_counts)
 
     bg = sub.add_parser(

@@ -4,12 +4,16 @@ Counterpart of fluorosequencingimageanalysis_tpu/api.py ``Pipeline``'s
 ``run_stack``, ``run_zstack``, ``run_experiment``, ``run_timetrace``,
 ``run_timetraces``, ``run_files``, ``stepfit``, ``chi_squared_stepfit``,
 ``fluor_counts``, ``fluor_counts_calibrated``, ``per_cycle_gmm`` and
-``simulate_signals``, on one device, with its
-content-hash artifact store (utils/checkpoint.py). ``Pipeline(device=[...])``
-(a device list, or a ``parallel.mesh.Mesh``) shards ``run_stack`` and
-``run_experiment`` over those devices, padding the fields axis to the data
-axis as the JAX Pipeline does; its other methods raise
-``NotImplementedError`` there (``MULTI_DEVICE_GAP``).
+``simulate_signals``, with its content-hash artifact store
+(utils/checkpoint.py). ``Pipeline(device=[...])`` (a device list, or a
+``parallel.mesh.Mesh``) runs every method the JAX Pipeline runs on its mesh
+data-parallel over the data devices, as the JAX Pipeline does:
+``run_stack`` and ``run_experiment`` (fields, padded to the data axis),
+``run_zstack`` (frames), ``run_timetrace`` and ``run_timetraces``
+(tracks, then traces), ``stepfit``, ``fluor_counts`` and
+``fluor_counts_calibrated`` (traces) and ``per_cycle_gmm`` (models).
+``simulate_signals`` and ``chi_squared_stepfit`` are host work whatever
+the device.
 
     from fluorosequencingimageanalysis_torch.api import Pipeline
     out = Pipeline(device="cuda").run_stack(stack)       # [F, C, H, W]
@@ -62,10 +66,6 @@ EXPERIMENT_KEYS = ("offsets_h", "offsets_w", "spot_rh", "spot_rw",
 
 logger = logging.getLogger(__name__)
 
-# What a Pipeline over more than one device does not shard yet.
-MULTI_DEVICE_GAP = ("ROADMAP Queue 1, item 3: shard the other Pipeline "
-                    "methods over a device list")
-
 
 def _normalize_stack(stack):
     """Host-side dtype normalisation; tensors pass through untouched."""
@@ -78,61 +78,72 @@ def _normalize_stack(stack):
 
 
 class _GroupUploader:
-    """Groups of ``g`` items along a stack's first axis, on the device.
+    """Pieces ``(lo, hi, device)`` of a stack's first axis, each on its
+    device.
 
-    On a CUDA device the host stack is copied once into pinned memory and
-    each group uploads from it on a side copy stream, behind an event that
-    ``take`` makes the current stream wait on. A ``resident`` stack (by
-    default: one that lies on the device) is sliced, not copied."""
+    A piece bound for a CUDA device uploads from one pinned copy of the
+    host stack (made at the first such piece) on a side copy stream of
+    its device, behind an event that ``take`` makes that device's current
+    stream wait on. A piece of a stack that already lies on the piece's
+    device is sliced, not copied, unless ``from_host`` (the caller's
+    frames came from the host, so every piece counts as an upload); a
+    stack on another device is copied across."""
 
-    def __init__(self, stack, lows, g, device, resident=None):
-        self.stack, self.lows, self.g, self.dev = stack, lows, g, device
-        self.on_card = device.type == "cuda"
-        self.groups = [None] * len(lows)
-        self.events = [None] * len(lows)
-        if resident is None:
-            resident = stack.device == device
-        if resident:
-            self.groups = [stack[lo:lo + g] for lo in lows]
-        elif self.on_card:
-            self.host = stack if stack.is_pinned() else stack.pin_memory()
-            self.copy_stream = torch.cuda.Stream(device)
+    def __init__(self, stack, pieces, from_host=False):
+        self.stack, self.pieces, self.from_host = stack, pieces, from_host
+        self.parts = [None] * len(pieces)
+        self.events = [None] * len(pieces)
+        self.host = None
+        self.streams = {}
 
     def upload(self, i):
-        """Enqueue group i's upload (once)."""
-        if self.groups[i] is not None:
+        """Enqueue piece i's upload (once)."""
+        if self.parts[i] is not None:
             return
-        lo, dev = self.lows[i], self.dev
-        part = (self.host if self.on_card else self.stack)[lo:lo + self.g]
-        if self.on_card:
+        lo, hi, dev = self.pieces[i]
+        if not self.from_host and self.stack.device == dev:
+            self.parts[i] = self.stack[lo:hi]
+            return
+        if dev.type == "cuda" and self.stack.device.type == "cpu":
+            if self.host is None:
+                self.host = (self.stack if self.stack.is_pinned()
+                             else self.stack.pin_memory())
+            part = self.host[lo:hi]
+            if dev not in self.streams:
+                self.streams[dev] = torch.cuda.Stream(dev)
+            stream = self.streams[dev]
             buf = torch.empty(part.shape, dtype=part.dtype, device=dev)
             # The buffer may reuse memory the main stream still reads.
-            self.copy_stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(self.copy_stream):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
                 buf.copy_(part, non_blocking=True)
                 self.events[i] = torch.cuda.Event()
-                self.events[i].record(self.copy_stream)
-            buf.record_stream(self.copy_stream)
-            self.groups[i] = buf
+                self.events[i].record(stream)
+            buf.record_stream(stream)
+            self.parts[i] = buf
         else:
-            self.groups[i] = part.to(dev)
+            part = self.stack[lo:hi]
+            self.parts[i] = part.to(dev)
         profiling.bump("ledger/uploads")
         profiling.bump("ledger/upload_bytes",
                        part.numel() * part.element_size())
 
     def take(self, i):
-        """Group i on the device, once the current stream has been told
-        to wait for its upload; the uploader drops its reference."""
+        """Piece i on its device, once that device's current stream has
+        been told to wait for its upload; the uploader drops its
+        reference."""
         self.upload(i)
         if self.events[i] is not None:
-            torch.cuda.current_stream(self.dev).wait_event(self.events[i])
-        grp, self.groups[i] = self.groups[i], None
-        return grp
+            torch.cuda.current_stream(self.pieces[i][2]).wait_event(
+                self.events[i])
+        part, self.parts[i] = self.parts[i], None
+        return part
 
 
 class Pipeline:
     """Config-driven detection, z-stack, experiment, movie and step-fit
-    paths on one device, optionally cached in an artifact store."""
+    paths on one device or sharded over several, optionally cached in an
+    artifact store."""
 
     def __init__(self, config: PipelineConfig | None = None,
                  device="cuda", store=None, profile: bool = False):
@@ -143,8 +154,10 @@ class Pipeline:
             device: where the step runs ("cuda", "cuda:1", "cpu", ...). A
                 CUDA device must exist; CPU runs the kernels' plain twins.
                 A list of devices, or a ``parallel.mesh.Mesh``, shards
-                ``run_stack`` and ``run_experiment``'s step over them
-                (fields over the data axis); the first is ``self.device``.
+                every method the JAX Pipeline runs on its mesh over the
+                data devices (see the module docstring); the first is
+                ``self.device``, where the work that is not sharded runs
+                (the detection of a movie's first frame, its photometry).
             store: utils.checkpoint.ArtifactStore for run caching, or None.
             profile: record host-clock stage timings into
                 ``utils.profiling``'s registry.
@@ -159,16 +172,11 @@ class Pipeline:
             self.mesh = make_mesh(devices=device)
         self.device = (self.mesh.devices[0, 0] if self.mesh is not None
                        else resolve_device(device))
+        # What the sharded ops take as ``device=``: the mesh, else the one
+        # device.
+        self._ops_device = self.mesh if self.mesh is not None else self.device
         self.store = store
         self.profile = profile
-
-    def _one_device(self, method):
-        """Raise for a method that does not shard over several devices."""
-        if self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError(
-                f"Pipeline.{method} runs on one device; a Pipeline over "
-                f"{self.mesh.size} devices shards run_stack and "
-                f"run_experiment only ({MULTI_DEVICE_GAP})")
 
     def _step(self, stack, **kw):
         """``experiment_step`` on ``self.device``, or sharded over
@@ -317,7 +325,8 @@ class Pipeline:
                 yield self.store.load(key), None, 0
                 return
         with self._stage("api/run_stack"):
-            uploader = _GroupUploader(stack, lows, g, dev)
+            uploader = _GroupUploader(stack, [(lo, lo + g, dev)
+                                              for lo in lows])
 
         def step(i):
             grp = uploader.take(i)
@@ -384,6 +393,13 @@ class Pipeline:
         group's work, and each group's results copy back without waiting;
         nothing passes through the host between the raw frames and the
         fitted buckets. A stack already on the device runs as one group.
+        On a device list or a ``Mesh`` with more than one data device the
+        groups of ``GROUP_FRAMES`` frames (a stack already on the device
+        too) are dealt to the data devices in turn, each uploaded to its
+        device on that device's side stream; every group runs the
+        background, detection, fit and fetch of a one-device group on its
+        own frames, so the result is the one-device result for frames from
+        the host, and the results join in frame order.
 
         ``stack``: [T, H, W] numpy array or tensor in any camera dtype
         (integer frames upload raw and are cast on the device).
@@ -412,7 +428,6 @@ class Pipeline:
         frames) with ``psfs``. The artifact store caches the array outputs
         only (``psfs=True`` always computes).
         """
-        self._one_device("run_zstack")
         from .models.detect import (SpotFindResult, _fetch_async,
                                     detect_and_fit_batch,
                                     detect_and_fit_exhaustive,
@@ -420,6 +435,7 @@ class Pipeline:
                                     unpack_spot_buckets,
                                     warn_candidate_overflow)
         from .ops.background import stack_background, widen
+        from .parallel.mesh import data_devices
 
         # A tensor the caller placed on the device runs whole; host frames
         # (arrays, and tensors elsewhere) go up in groups.
@@ -458,9 +474,14 @@ class Pipeline:
             if self.store.exists(key):
                 return self.store.load(key)
         T = stack.shape[0]
-        dev = self.device
-        g = T if resident else GROUP_FRAMES
-        lows = list(range(0, T, g))
+        devs = data_devices(self._ops_device)
+        g = T if resident and len(devs) == 1 else GROUP_FRAMES
+        # The groups (lo, hi, device) in frame order, dealt to the data
+        # devices in turn; a round holds one group a device.
+        pieces = [(lo, min(lo + g, T), devs[i % len(devs)])
+                  for i, lo in enumerate(range(0, T, g))]
+        rounds = [range(i, min(i + len(devs), len(pieces)))
+                  for i in range(0, len(pieces), len(devs))]
         detect_kw = dict(
             median_filter_size=det.median_filter_size, c_std=float(det.c_std),
             r_2_threshold=float(det.r_2_threshold),
@@ -479,11 +500,11 @@ class Pipeline:
                            sum(int(v.nbytes) for v in out.values()))
             return out
 
-        def dispatch_group(i):
-            """Group i's background and subtraction, then (unless
-            exhaustive) detect + fit; starts the copies of its outputs to
-            the host. Returns ((names, host tensors, event), subtracted
-            frames or None)."""
+        def dispatch_piece(i):
+            """Piece i's background and subtraction, then (unless
+            exhaustive) detect + fit on its device; starts the copies of
+            its outputs to the host. Returns ((names, host tensors,
+            event), subtracted frames or None)."""
             grp = uploader.take(i)
             profiling.bump("ledger/step_dispatches")
             with torch.no_grad():
@@ -512,22 +533,25 @@ class Pipeline:
             return (list(fetch), *_fetch_async(list(fetch.values()))), None
 
         with self._stage("api/run_zstack"):
-            uploader = _GroupUploader(stack, lows, g, dev, resident)
+            uploader = _GroupUploader(stack, pieces, from_host=not resident)
             if exhaustive:
-                # One-ahead window: group k+1's upload and background are
+                # One-ahead window: round k+1's uploads and backgrounds are
                 # enqueued before the chunked path (which waits for the
-                # candidate counts) runs on group k, so about two groups
+                # candidate counts) runs on round k, so about two rounds
                 # of frames are resident, not the whole subtracted stack.
-                uploader.upload(0)
-                cur = dispatch_group(0)
+                for i in rounds[0]:
+                    uploader.upload(i)
+                cur = [dispatch_piece(i) for i in rounds[0]]
                 parts = []
-                for i in range(len(lows)):
-                    item, sub = cur
-                    if i + 1 < len(lows):
-                        uploader.upload(i + 1)
-                        cur = dispatch_group(i + 1)
-                    res = detect_and_fit_exhaustive(sub, **detect_kw)
-                    parts.append((res, collect(item)))
+                for ri in range(len(rounds)):
+                    items = cur
+                    if ri + 1 < len(rounds):
+                        for i in rounds[ri + 1]:
+                            uploader.upload(i)
+                        cur = [dispatch_piece(i) for i in rounds[ri + 1]]
+                    for item, sub in items:
+                        res = detect_and_fit_exhaustive(sub, **detect_kw)
+                        parts.append((res, collect(item)))
                 # Per-group candidate widths differ (K = chunks * chunk):
                 # pad to the widest; pad entries are invalid and unkept,
                 # like the chunked loop's own padding.
@@ -555,12 +579,12 @@ class Pipeline:
                     out[name] = np.concatenate(
                         [extra[name] for _, extra in parts])
             else:
-                for i in range(len(lows)):
+                for i in range(len(pieces)):
                     uploader.upload(i)
-                pending = [dispatch_group(i)[0] for i in range(len(lows))]
-                groups = [collect(item) for item in pending]
-                out = {k: np.concatenate([grp[k] for grp in groups])
-                       for k in groups[0]}
+                pending = [dispatch_piece(i)[0] for i in range(len(pieces))]
+                fetched = [collect(item) for item in pending]
+                out = {k: np.concatenate([f[k] for f in fetched])
+                       for k in fetched[0]}
                 if lean:
                     packed = [out.pop(k) for k in (
                         "_lean_f32", "_lean_ints", "_lean_flags",
@@ -947,6 +971,12 @@ class Pipeline:
                 config.photometry.photometry_min, pass None to disable
                 flooring regardless of config.
 
+        On a device list or a ``Mesh`` of more than one data device, the
+        first frame's detection stays on ``self.device``; the tracks are
+        split over the data devices (``lc_track``), their photometry runs
+        on ``self.device`` (the two-step path, as in the JAX Pipeline) and
+        the step fits split their traces over the data devices.
+
         With ``profile``, host-clock stages: "api/run_timetrace/upload",
         ".../detect", ".../track+photometry" (window metrics; ".../track"
         and ".../photometry" for the others), ".../stepfit",
@@ -956,7 +986,6 @@ class Pipeline:
         photometries (N, T), step_fits, step_fit_intermediates,
         trace_count, csv_path.
         """
-        self._one_device("run_timetrace")
         from .models.detect import find_peptide_centers
         from .ops.background import widen
         from .ops.stepfit_batch import stepfit_batched
@@ -983,8 +1012,8 @@ class Pipeline:
         with self._stage("api/run_timetrace/upload"), torch.no_grad():
             # One upload of the raw frames (half the bytes of float32 for
             # uint16), widened on the device.
-            movie_dev = widen(_GroupUploader(movie, [0], T,
-                                             self.device).take(0))
+            movie_dev = widen(_GroupUploader(
+                movie, [(0, T, self.device)]).take(0))
         with self._stage("api/run_timetrace/detect"):
             det = self.config.detect
             # The arrays path: the psfs-dict key semantics without the
@@ -1016,9 +1045,14 @@ class Pipeline:
                     "photometries": np.zeros((0, T)),
                     "step_fits": {}, "step_fit_intermediates": {},
                     "trace_count": 0, "csv_path": csv_path}
-        if phot.method in ("mexican_hat", "simple", "maximum"):
+        n_track_shards = (self.mesh.shape["data"] if self.mesh is not None
+                          else 1)
+        if phot.method in ("mexican_hat", "simple", "maximum") and \
+                n_track_shards == 1:
             # Fused: the tracked positions stay on the device and feed the
-            # window gathers (values equal the two-step path's).
+            # window gathers (values equal the two-step path's). Tracks
+            # sharded over several devices take the two-step path, as in
+            # the JAX Pipeline.
             with self._stage("api/run_timetrace/track+photometry"):
                 rec_h, rec_w, present, photometries = \
                     lc_track_and_photometry(
@@ -1032,7 +1066,8 @@ class Pipeline:
             with self._stage("api/run_timetrace/track"):
                 rec_h, rec_w, present = lc_track(
                     movie_dev, h0, w0, search_radius=search_radius,
-                    s_n_cutoff=s_n_cutoff)
+                    s_n_cutoff=s_n_cutoff,
+                    device=self.mesh if n_track_shards > 1 else None)
             with self._stage("api/run_timetrace/photometry"):
                 photometries = timetrace_photometries(
                     movie_dev, rec_h, rec_w, present, phot.method,
@@ -1047,7 +1082,7 @@ class Pipeline:
                                       chung_kennedy=chung_kennedy,
                                       p_threshold=p_threshold,
                                       window_radius=sf.window_radius,
-                                      device=self.device)
+                                      device=self._ops_device)
         with self._stage("api/run_timetrace/assemble"):
             step_fits = {}
             intermediates = {}
@@ -1091,6 +1126,8 @@ class Pipeline:
         ``prefetch``: upload movie k+1 (raw camera dtype, from pinned
         memory on a side stream) while movie k computes. None (default)
         means one movie ahead on a CUDA device and no prefetch on the CPU.
+        The movies go to ``self.device``; on a device list each runs
+        through ``run_timetrace`` over the list.
 
         Arguments:
             movies: iterable of [T, H, W] arrays (dtypes may differ).
@@ -1099,7 +1136,6 @@ class Pipeline:
 
         Returns a list of run_timetrace result dicts, in order.
         """
-        self._one_device("run_timetraces")
         if "csv_path" in kwargs:
             raise TypeError(
                 "run_timetraces takes csv_paths (one per movie), "
@@ -1113,7 +1149,7 @@ class Pipeline:
         def start_upload(m):
             if m.ndim != 3:
                 raise ValueError("movie must be [frames, H, W]")
-            up = _GroupUploader(m, [0], m.shape[0], self.device)
+            up = _GroupUploader(m, [(0, m.shape[0], self.device)])
             up.upload(0)
             return up
 
@@ -1150,7 +1186,6 @@ class Pipeline:
         Returns a list of N (photometries, ck_filtered, plateaus,
         t_filtered_plateaus) tuples (ops.stepfit_batch.stepfit_batched).
         """
-        self._one_device("stepfit")
         from .ops.stepfit_batch import stepfit_batched
         sf = self.config.stepfit
         with self._stage("api/stepfit"):
@@ -1159,7 +1194,7 @@ class Pipeline:
                                    chung_kennedy=sf.chung_kennedy,
                                    p_threshold=sf.p_threshold,
                                    window_radius=sf.window_radius,
-                                   device=self.device)
+                                   device=self._ops_device)
 
     def chi_squared_stepfit(self, photometries, num_steps_multiplier=1,
                             num_steps=None, min_step_length=2,
@@ -1190,10 +1225,11 @@ class Pipeline:
 
         ``tracks`` is a track-CSV path (dict-free native ingestion) or a
         photometries dict. Returns (signals, total, none_count, fit_info).
-        The scoring runs on the pipeline's device (a ``device=`` keyword
-        names another): the hand-written kernel on a CUDA device.
+        The scoring runs on the pipeline's device, or its traces are split
+        over the pipeline's data devices (a ``device=`` keyword names
+        another device or device list): the hand-written kernel on a CUDA
+        device.
         """
-        self._one_device("fluor_counts")
         ln = self.config.lognormal
         if quench_factors is None:
             # config.lognormal.quench_factors when set, else no quenching
@@ -1201,7 +1237,7 @@ class Pipeline:
             quench_factors = (tuple(ln.quench_factors) or
                               (0.0,) * (ln.max_possible + 2))
         # device= in kwargs scores elsewhere than the pipeline's device.
-        device = kwargs.pop("device", self.device)
+        device = kwargs.pop("device", self._ops_device)
         with self._stage("api/fluor_counts"):
             if isinstance(tracks, str):
                 from .inference.lognormal import lognormal_fit_v8_from_csv
@@ -1241,7 +1277,8 @@ class Pipeline:
                                 adjustment=True):
         """Auto-calibrated v8 fluor counting: the lognormal_fitter_v2
         flow (lognormal_fitter_v2.py:119-212 in the reference) on the
-        batched scorer, on the pipeline's device.
+        batched scorer, on the pipeline's device (or its traces split over
+        the pipeline's data devices).
 
         alpha comes from the first-two-mode histogram separation
         (_get_m0Dm1[7]); beta from the last-drop method v2 on the
@@ -1259,7 +1296,6 @@ class Pipeline:
         value the fits used), beta_sigma_estimate, original_beta,
         original_beta_sigma}.
         """
-        self._one_device("fluor_counts_calibrated")
         from collections import defaultdict
 
         from .inference.calibration import _get_m0Dm1, last_drop_method_v2
@@ -1299,7 +1335,7 @@ class Pipeline:
                 dict(alpha_adjusted), original_beta, beta_sigma,
                 max_possible=max_possible, allow_upsteps=False,
                 allow_multidrop=allow_multidrop, max_deviation=3,
-                quench_factors=quench, device=self.device)
+                quench_factors=quench, device=self._ops_device)
             on_offs = jd.grab_ON_OFFS(first[3], alpha_adjust=0)
             if adjustment:
                 # Unconditional like the reference
@@ -1319,7 +1355,7 @@ class Pipeline:
                     adj_photometries, adj_beta, beta_sigma,
                     max_possible=max_possible, allow_upsteps=False,
                     allow_multidrop=allow_multidrop, max_deviation=3,
-                    quench_factors=quench, device=self.device)
+                    quench_factors=quench, device=self._ops_device)
         # Faithful to lognormal_fitter_v2.py:199-212: BOTH fits use the
         # caller's beta_sigma; last_drop_method_v2's sigma estimates are
         # derived but never fed back. Report the estimate separately so
@@ -1338,16 +1374,17 @@ class Pipeline:
         component-count, restart) model fitted in ONE launch of kernel E
         (ops/gmm_batch.py) on this Pipeline's device: the reference's
         nested Pool fan-out (_per_cycle_gmm_MP, MCsimlib.py:3307-3375) in
-        one dispatch. Returns (all_fit_scores, all_fits, raw_photometries)
-        in the reference's structure, with BatchedGMM1D fits
-        (means_/covars_/weights_/bic)."""
-        self._one_device("per_cycle_gmm")
+        one dispatch (on a device list, one a data device over its share
+        of the models). Returns (all_fit_scores, all_fits,
+        raw_photometries) in the reference's structure, with BatchedGMM1D
+        fits (means_/covars_/weights_/bic)."""
         from .inference.gmm import per_cycle_gmm_batched
         with self._stage("api/per_cycle_gmm"):
             return per_cycle_gmm_batched(
                 photometries, min_fluors=min_fluors, max_fluors=max_fluors,
                 n_init=n_init, n_iter=n_iter, cycles=cycles,
-                lower_bound=lower_bound, seed=seed, device=self.device)
+                lower_bound=lower_bound, seed=seed,
+                device=self._ops_device)
 
     # -- simulation ----------------------------------------------------------
 
@@ -1356,8 +1393,8 @@ class Pipeline:
         """Monte-Carlo signal trie (MCsimlib.py:1787-1849) from the native
         C++ sampler (csrc/randsiggen.cpp, built with g++ at first use). A
         failed build raises: the JAX package's quiet rerun on the Python
-        sampler would draw from another stream."""
-        self._one_device("simulate_signals")
+        sampler would draw from another stream. Host work, whatever the
+        Pipeline's device or devices."""
         from .native.randsiggen import monte_carlo_trie_native
 
         with self._stage("api/simulate_signals"):

@@ -10,7 +10,9 @@ reference signatures and run serially. scikit-learn is imported inside the
 two functions that use it (``_fit_gmm``, ``_cluster_fit_2``), so the
 module imports where it is absent. ``gmm_photometries_batched`` and
 ``per_cycle_gmm_batched`` fit through ops/gmm_batch.py (kernel E) on
-``device``, "cuda" unless the caller passes "cpu".
+``device``, "cuda" unless the caller passes "cpu"; a device list or a
+``parallel.mesh.Mesh`` splits the models over its data devices, as the JAX
+functions' mesh does.
 """
 
 from __future__ import annotations

@@ -169,8 +169,10 @@ def _as_images(images, device, dtype=np.float32):
 
 
 def _fetch_async(tensors):
-    """Start the device->host copies of ``tensors`` into pinned memory;
-    returns (host tensors, event or None). On the CPU nothing is copied."""
+    """Start the device->host copies of ``tensors`` (all on one device)
+    into pinned memory; returns (host tensors, event or None). On the CPU
+    nothing is copied. The event is recorded on the current stream of the
+    tensors' device, where the copies run."""
     if not tensors or tensors[0].device.type != "cuda":
         return list(tensors), None
     host = []
@@ -179,7 +181,7 @@ def _fetch_async(tensors):
         h.copy_(t, non_blocking=True)
         host.append(h)
     event = torch.cuda.Event()
-    event.record()
+    event.record(torch.cuda.current_stream(tensors[0].device))
     return host, event
 
 

@@ -1,4 +1,5 @@
-"""SExtractor mesh background estimation over image stacks, on one device.
+"""SExtractor mesh background estimation over image stacks, on one device
+or split over a device list.
 
 Counterpart of fluorosequencingimageanalysis_tpu/ops/background.py: the
 device form of the host ``pipeline.spots._mesh_background`` (the photutils
@@ -138,6 +139,25 @@ def _to_device(array, device):
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
+def _over_frames(fn, stack, device):
+    """``fn`` over the frames of a [T, H, W] or [H, W] ``stack`` split
+    into contiguous shares, one per data device of the device list or
+    ``Mesh`` ``device``: each share goes to its device (tensor or array),
+    every share's ``fn`` is enqueued before any result is gathered, and
+    the results return in frame order on the first data device."""
+    from ..parallel.mesh import shares
+
+    if not isinstance(stack, torch.Tensor):
+        stack = np.asarray(stack)
+    single = stack.ndim == 2
+    frames = stack[None] if single else stack
+    spans = shares(frames.shape[0], device)
+    parts = [fn(frames[lo:hi].to(d) if isinstance(frames, torch.Tensor)
+                else _to_device(frames[lo:hi], d)) for lo, hi, d in spans]
+    out = torch.cat([p.to(spans[0][2]) for p in parts])
+    return out[0] if single else out
+
+
 def _on_device(kind, key, build, device, dtype):
     """The host table ``build()`` as a tensor on ``device``, cached."""
     ck = (kind, key, str(device), dtype)
@@ -179,7 +199,12 @@ def stack_background(stack, box_size=10, filter_size=10, clip_sigma=3.0,
 
     ``stack``: a tensor (used on its own device; ``device`` is ignored) or
     an array in any camera dtype (uploaded to ``device``). Returns a
-    tensor on that device.
+    tensor on that device. A device list or a ``parallel.mesh.Mesh`` in
+    ``device`` splits the frames over its data devices (the JAX package's
+    ``mesh=``): each share goes to its device, tensor or array, every
+    share's maps are enqueued before any is gathered, and the maps return
+    in frame order on the first data device. Frames are independent, so
+    each frame's map is the one-device map of the same share shape.
 
     Spec (host oracle: pipeline.spots._mesh_background): pad to a box
     multiple by edge replication, 3-sigma clip each box (median-centered
@@ -188,6 +213,13 @@ def stack_background(stack, box_size=10, filter_size=10, clip_sigma=3.0,
     median) and flat (std == 0 -> mean) fallbacks, median-filter the mesh,
     cubic-spline zoom back to full resolution, crop the pad.
     """
+    from ..parallel.mesh import is_device_list
+
+    if is_device_list(device):
+        return _over_frames(lambda x: stack_background(
+            x, box_size=box_size, filter_size=filter_size,
+            clip_sigma=clip_sigma, clip_maxiters=clip_maxiters),
+            stack, device)
     if not isinstance(stack, torch.Tensor):
         stack = _to_device(np.asarray(stack), resolve_device(device))
     single = stack.ndim == 2
@@ -254,7 +286,15 @@ def subtract_background_stack(stack, box_size=10, filter_size=10,
     """stack - stack_background(stack) on the device, in the estimator's
     compute dtype. api.Pipeline.run_zstack subtracts inline instead (it
     needs the background map for ``return_background``); both go through
-    ``stack_background``."""
+    ``stack_background``. A device list or a ``parallel.mesh.Mesh`` splits
+    the frames over its data devices as ``stack_background`` does."""
+    from ..parallel.mesh import is_device_list
+
+    if is_device_list(device):
+        return _over_frames(lambda x: subtract_background_stack(
+            x, box_size=box_size, filter_size=filter_size,
+            clip_sigma=clip_sigma, clip_maxiters=clip_maxiters),
+            stack, device)
     if not isinstance(stack, torch.Tensor):
         stack = _to_device(np.asarray(stack), resolve_device(device))
     bg = stack_background(stack, box_size=box_size, filter_size=filter_size,

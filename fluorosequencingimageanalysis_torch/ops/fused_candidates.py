@@ -38,8 +38,9 @@ def _launch(images, taps):
     out = torch.empty_like(images)
     taps_c = (ctypes.c_float * 25)(*taps)
     stream = torch.cuda.current_stream(images.device).cuda_stream
-    err = fn(images.data_ptr(), out.data_ptr(), B, H, W,
-             ctypes.cast(taps_c, ctypes.c_void_p), stream)
+    with torch.cuda.device(images.device):
+        err = fn(images.data_ptr(), out.data_ptr(), B, H, W,
+                 ctypes.cast(taps_c, ctypes.c_void_p), stream)
     if err != 0:
         raise RuntimeError(f"candidate_map kernel launch failed: CUDA "
                            f"error {err}")

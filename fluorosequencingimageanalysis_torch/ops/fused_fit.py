@@ -48,9 +48,10 @@ def _launch(images, hs, ws, num_iters, theta_starts):
     outs = [torch.empty((B, K), dtype=torch.float32, device=images.device)
             for _ in range(5)]
     stream = torch.cuda.current_stream(images.device).cuda_stream
-    err = fn(images.data_ptr(), hs.data_ptr(), ws.data_ptr(), B, H, W, K,
-             int(num_iters), int(theta_starts), params.data_ptr(),
-             *[o.data_ptr() for o in outs], stream)
+    with torch.cuda.device(images.device):
+        err = fn(images.data_ptr(), hs.data_ptr(), ws.data_ptr(), B, H, W,
+                 K, int(num_iters), int(theta_starts), params.data_ptr(),
+                 *[o.data_ptr() for o in outs], stream)
     if err != 0:
         raise RuntimeError(f"fit_quality kernel launch failed: CUDA error "
                            f"{err}")

@@ -34,7 +34,6 @@ import math
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..utils import profiling
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -236,6 +235,11 @@ def gmm_fit_batched(groups, ks, n_init=10, n_iter=100, reg=1e-6,
         chunk: data chunk length of the twin's E-step; the data are
             padded to a multiple of it.
         device: where the EM runs ("cuda" by default, "cpu" for the twin).
+            A device list or a ``parallel.mesh.Mesh`` splits the model
+            axis over its data devices (the JAX package's ``mesh=``): each
+            gets the data and its contiguous share of the models, and the
+            shares return in model order. Models share no sums, so the
+            result is the one-device result.
 
     Returns a dict of host arrays, best-over-restarts per (group, k):
         weights, means, vars: (G, J, K_max) float64, original scale,
@@ -263,7 +267,7 @@ def gmm_fit_batched(groups, ks, n_init=10, n_iter=100, reg=1e-6,
             f"groups {short} have fewer data points than the largest "
             f"component count ({max(ks)}); a mixture needs n_samples >= "
             "n_components")
-    dev = resolve_device(device)
+    from ..parallel.mesh import shares
 
     G = len(groups)
     J = len(ks)
@@ -275,13 +279,21 @@ def gmm_fit_batched(groups, ks, n_init=10, n_iter=100, reg=1e-6,
             groups, ks, n_init, seed, chunk)
 
     with profiling.stage("gmm/em"):
-        def put(a):
-            return torch.from_numpy(a).to(dev)
-
-        out = em_in_slices(put(z), put(n_valid.astype(np.int32)), put(w0),
-                           put(mu0), put(var0), put(comp_mask), int(n_iter),
-                           float(reg), chunk=chunk)
-        w, mu, var, ll = (t.cpu().numpy().astype(np.float64) for t in out)
+        counts = n_valid.astype(np.int32)
+        data = {}
+        outs = []
+        for lo, hi, dev in shares(w0.shape[1], device):
+            if dev not in data:
+                data[dev] = (torch.from_numpy(z).to(dev),
+                             torch.from_numpy(counts).to(dev))
+            outs.append(em_in_slices(
+                *data[dev], *(torch.from_numpy(np.ascontiguousarray(
+                    a[:, lo:hi])).to(dev)
+                    for a in (w0, mu0, var0, comp_mask)),
+                int(n_iter), float(reg), chunk=chunk))
+        w, mu, var, ll = (np.concatenate([t.cpu().numpy() for t in ts],
+                                         axis=1).astype(np.float64)
+                          for ts in zip(*outs))
 
     with profiling.stage("gmm/select"):
         # Best restart per (group, k-choice) by final log-likelihood

@@ -162,16 +162,22 @@ def score_traces(intensities, categories, log_fluor_means, beta_sigma,
     chunk: traces per scoring call; None takes ``CUDA_CHUNK`` or
         ``CPU_CHUNK`` by the device. Results are chunk-invariant.
     device: where the scoring runs; a CUDA device launches the hand-written
-        kernel, "cpu" runs its plain twin.
+        kernel, "cpu" runs its plain twin. A device list or a
+        ``parallel.mesh.Mesh`` splits each chunk's rows over its data
+        devices (the JAX package's ``mesh=``), one scoring call a chunk
+        and device; each trace's score is its own, so the result is the
+        one-device result.
     Returns (best_seqs (T, F) int array, found (T,) bool,
              best_logscore (T,) float).
 
     Every chunk is uploaded and queued before any result is fetched, so the
     device works through them without waiting on the host.
     """
-    device = resolve_device(device)
+    from ..parallel.mesh import data_devices, shares
+
+    devs = data_devices(device)
     if chunk is None:
-        chunk = CUDA_CHUNK if device.type == "cuda" else CPU_CHUNK
+        chunk = CUDA_CHUNK if devs[0].type == "cuda" else CPU_CHUNK
     if len(log_fluor_means) < max_possible:
         # Sequence values above len(log_fluor_means) would have no score
         # entry. The reference dies with IndexError on the same input
@@ -183,21 +189,24 @@ def score_traces(intensities, categories, log_fluor_means, beta_sigma,
     T, F = intensities.shape
     lmii = max_possible
     tab = sequence_table(F, lmii, allow_upsteps)
-    table = device_table(F, lmii, allow_upsteps, allow_multidrop, device)
+    tables = {d: device_table(F, lmii, allow_upsteps, allow_multidrop, d)
+              for d in devs}
     log_int = np.where(intensities > 0,
                        np.log(np.maximum(intensities, 1e-300)),
                        -10000.0).astype(np.float32)
     cats = np.ascontiguousarray(categories, dtype=bool)
     lfm = torch.from_numpy(np.asarray(log_fluor_means[:lmii],
-                                      dtype=np.float32)).to(device)
+                                      dtype=np.float32))
+    lfms = {d: lfm.to(d) for d in devs}
 
     pending = []
     for lo in range(0, T, chunk):
-        hi = min(lo + chunk, T)
-        pending.append((lo, hi, _score_batch(
-            torch.from_numpy(log_int[lo:hi]).to(device),
-            torch.from_numpy(cats[lo:hi]).to(device), table, lfm,
-            float(beta_sigma), float(max_deviation))))
+        for a, b, d in shares(min(chunk, T - lo), devs):
+            a, b = lo + a, lo + b
+            pending.append((a, b, _score_batch(
+                torch.from_numpy(log_int[a:b]).to(d),
+                torch.from_numpy(cats[a:b]).to(d), tables[d], lfms[d],
+                float(beta_sigma), float(max_deviation))))
     best_idx = np.zeros((T,), np.int64)
     found = np.zeros((T,), bool)
     best_ls = np.zeros((T,), np.float64)

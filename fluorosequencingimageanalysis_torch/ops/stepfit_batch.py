@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from .. import stepfitting
-from .._device import resolve_device
 from ..models.detect import _fetch_async
 from ..utils import profiling
 from .special import betainc
@@ -282,8 +281,12 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
     (None = ``STEPFIT_CHUNK``; from pinned memory on a CUDA device), the CK
     filter and the detector run on ``device`` in float64, and the CK traces
     and masks copy back without waiting; every chunk is enqueued before
-    any result is read. Results do not depend on the chunk. ``n_threads``:
-    threads of the native post-pass (None = min(cpu_count, 16)).
+    any result is read. Results do not depend on the chunk. A device list
+    or a ``parallel.mesh.Mesh`` in ``device`` splits the rows of every
+    chunk over its data devices (the JAX package's ``mesh=``): all window
+    math is within a row, so the result is the one-device result.
+    ``n_threads``: threads of the native post-pass (None = min(cpu_count,
+    16)).
 
     With ``utils.profiling`` stages are recorded under "stepfit/upload",
     "stepfit/ck+masks" (host clock of the enqueueing), "stepfit/fetch"
@@ -291,6 +294,7 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
     "stepfit/assemble".
     """
     from ..native import stepchain
+    from ..parallel.mesh import shares
 
     if chunk is None:
         chunk = STEPFIT_CHUNK
@@ -298,17 +302,20 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
     N, _ = phot.shape
     if N == 0:
         return []
-    dev = resolve_device(device)
-    on_card = dev.type == "cuda"
     mirrored = np.ascontiguousarray(np.concatenate(
         [phot[:, :mirror_start][:, ::-1], phot], axis=1))
     host = torch.from_numpy(mirrored)
 
+    # (lo, hi, device) of every dispatch: each chunk's rows in contiguous
+    # shares over the data devices, in row order.
+    pieces = [(lo + a, lo + b, d)
+              for lo in range(0, N, chunk)
+              for a, b, d in shares(min(chunk, N - lo), device)]
     pending = []
-    for lo in range(0, N, chunk):
+    for lo, hi, dev in pieces:
         with profiling.stage("stepfit/upload"):
-            piece = host[lo:lo + chunk]
-            if on_card:
+            piece = host[lo:hi]
+            if dev.type == "cuda":
                 piece = piece.pin_memory().to(dev, non_blocking=True)
             profiling.bump("ledger/uploads")
             profiling.bump("ledger/upload_bytes",

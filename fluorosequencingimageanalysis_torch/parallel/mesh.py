@@ -16,6 +16,15 @@ Each shard's step reads the host once per round of its non-max
 suppression (``ops/consolidate.py``), so the shards run one after the
 other on the calling thread; every shard's results stay on its device
 until all have run. Nothing here is timed on more than one card.
+
+``data_devices`` and ``shares`` are what the other sharded ops share
+(``stack_background``, ``lc_track``, ``stepfit_batched``,
+``score_traces`` and ``gmm_fit_batched``): their ``device=`` takes a
+device, a list of devices or a ``Mesh``, and they cut their rows (frames,
+tracks, traces, models) into contiguous, in-order shares, one per device
+of the data axis. The JAX package pads its rows to
+a multiple of the axis for its compiled shapes; torch splits unevenly, so
+nothing is padded here.
 """
 
 from __future__ import annotations
@@ -90,6 +99,44 @@ def make_mesh(n_devices=None, data_axis=None, model_axis=None,
     for i, dev in enumerate(devices):
         grid[i // model_axis, i % model_axis] = dev
     return Mesh(grid)
+
+
+def is_device_list(device):
+    """Whether ``device`` names a data axis to shard over (a list or tuple
+    of devices, or a ``Mesh``) rather than one device."""
+    return isinstance(device, (list, tuple, Mesh))
+
+
+def data_devices(device):
+    """The devices of the data axis, as a list of torch.device: a
+    ``Mesh``'s ``devices[:, 0]`` (the JAX package shards these ops over
+    ``mesh.axis_names[0]``; a model axis is not used by them), each entry
+    of a list or tuple, or the one device named. A CUDA device the process
+    cannot reach raises (``resolve_device``)."""
+    if isinstance(device, Mesh):
+        return list(device.devices[:, 0])
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device list")
+        return [resolve_device(d) for d in device]
+    return [resolve_device(device)]
+
+
+def shares(n, device):
+    """``n`` rows cut into contiguous, in-order spans, one per data device
+    of ``device`` (see ``data_devices``), the first ``n % len(devices)``
+    one row longer: a list of (lo, hi, torch.device) that holds only the
+    non-empty spans, or one empty span on the first device when ``n`` is
+    0."""
+    devs = data_devices(device)
+    base, extra = divmod(n, len(devs))
+    spans, lo = [], 0
+    for i, d in enumerate(devs):
+        hi = lo + base + (i < extra)
+        if hi > lo:
+            spans.append((lo, hi, d))
+        lo = hi
+    return spans or [(0, 0, devs[0])]
 
 
 def shard_fields(stack, mesh):

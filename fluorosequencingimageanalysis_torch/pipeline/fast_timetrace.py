@@ -7,7 +7,9 @@ first frame, follow each spot frame to frame by luminosity centroid with an
 S/N gate (flexlibrary.py:1172-1317), measure a photometry trace per track,
 and step-fit every trace.
 
-Here the tracking recursion runs on one device in plain torch: per frame,
+Here the tracking recursion runs in plain torch on one device, or on each
+device of a device list over its share of the tracks (``lc_track``): per
+frame,
 all live spots' centroid windows, S/N windows and gating decisions are
 batched tensor operations with no host read, so the T - 1 frames enqueue
 back to back and the results are fetched once. Photometry reuses the
@@ -161,18 +163,44 @@ def lc_track(movie, h0, w0, search_radius=3, s_n_cutoff=3.0, device=None):
     float-centered initial Spots).
 
     ``movie``: a tensor (tracked where it lies unless ``device`` is given)
-    or an array (uploaded to ``device``, default "cuda")."""
-    movie_dev = _as_images(movie, device)
-    (trunc0_h, trunc0_w, _, _), dev_states = _start_states(
-        h0, w0, movie_dev.device)
-    N = len(trunc0_h)
+    or an array (uploaded to ``device``, default "cuda"). A device list or
+    a ``parallel.mesh.Mesh`` in ``device`` splits the tracks over its data
+    devices (the JAX package's ``mesh=``): the movie goes once to each
+    device, each device walks its contiguous share of the tracks, every
+    share is enqueued before any result is fetched, and the shares return
+    in track order. Tracks are independent walks, so no filler walks are
+    needed and the result is the one-device result."""
+    from ..parallel.mesh import is_device_list, shares
+
+    states = np.stack(_initial_centers(h0, w0))
+    N = states.shape[1]
+    if is_device_list(device):
+        spans = shares(N, device)
+        movies = {}
+        for _, _, d in spans:
+            if d not in movies:
+                movies[d] = _as_images(movie, d)
+    else:
+        movie_dev = _as_images(movie, device)
+        spans = [(0, N, movie_dev.device)]
+        movies = {movie_dev.device: movie_dev}
+    pending = []
     with torch.no_grad():
-        rec = _lc_track_scan(movie_dev, *dev_states,
-                             search_radius=search_radius,
-                             s_n_cutoff=float(s_n_cutoff))
-    rec_h, rec_w, present = (x.cpu().numpy() for x in rec)
-    rec_h = np.concatenate([trunc0_h[None], rec_h])
-    rec_w = np.concatenate([trunc0_w[None], rec_w])
+        for lo, hi, d in spans:
+            dev_states = torch.from_numpy(
+                np.ascontiguousarray(states[:, lo:hi])).to(d)
+            pending.append(_fetch_async(list(_lc_track_scan(
+                movies[d], *dev_states, search_radius=search_radius,
+                s_n_cutoff=float(s_n_cutoff)))))
+    parts = []
+    for host, event in pending:
+        if event is not None:
+            event.synchronize()
+        parts.append([x.numpy() for x in host])
+    rec_h, rec_w, present = (np.concatenate(col, axis=1)
+                             for col in zip(*parts))
+    rec_h = np.concatenate([states[0][None], rec_h])
+    rec_w = np.concatenate([states[1][None], rec_w])
     present = np.concatenate([np.ones((1, N), bool), present])
     return rec_h, rec_w, present
 

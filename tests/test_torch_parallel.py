@@ -164,11 +164,19 @@ def test_sharded_step_equals_the_jax_sharded_step(step_stack,
 def test_pipeline_over_a_device_list_pads_and_raises_elsewhere(tmp_path):
     """3 fields on 2 data shards: run_stack pads to 4 and drops the
     padding; run_experiment's rows and CSV equal the one-device
-    Pipeline's; methods that do not shard raise NotImplementedError
-    naming the ROADMAP item."""
-    from fluorosequencingimageanalysis_torch.api import (
-        MULTI_DEVICE_GAP, Pipeline)
+    Pipeline's; every other method (run_zstack, run_timetrace and its CSV,
+    run_timetraces, stepfit, fluor_counts, fluor_counts_calibrated,
+    per_cycle_gmm, simulate_signals) returns the one-device Pipeline's
+    result bit for bit over the device list and over a Mesh
+    (tests/test_torch_parallel_methods.py holds each at more sizes)."""
+    from test_torch_inference import _calibration_tracks
+    from test_torch_parallel_methods import _equal
+
+    from fluorosequencingimageanalysis_torch import api
+    from fluorosequencingimageanalysis_torch.api import Pipeline
     from fluorosequencingimageanalysis_torch.parallel.mesh import make_mesh
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_gmm_photometries, make_step_traces)
     torch.set_num_threads(1)
     stack = _experiment_stack()[:3]
     multi = Pipeline(_config(), device=["cpu", "cpu"])
@@ -186,20 +194,46 @@ def test_pipeline_over_a_device_list_pads_and_raises_elsewhere(tmp_path):
     assert open(tmp_path / "multi.csv", "rb").read() == \
         open(tmp_path / "one.csv", "rb").read()
     mesh_pipe = Pipeline(_config(), device=make_mesh(devices=["cpu"] * 2))
-    for call in (lambda p: p.run_zstack(_frames()),
-                 lambda p: p.run_timetrace(_movie()),
-                 lambda p: p.run_timetraces([_movie()]),
-                 lambda p: p.stepfit(np.zeros((2, 20))),
-                 lambda p: p.fluor_counts({}, 30000.0, 0.2),
-                 lambda p: p.fluor_counts_calibrated({}),
-                 lambda p: p.per_cycle_gmm({}),
-                 lambda p: p.simulate_signals(["AK"], 0.9, 0.05, 0.1,
-                                              [(0, 1)])):
+    tracks = _calibration_tracks()
+    gmm_phot = make_gmm_photometries(200, 3, seed=1)
+    sim = ({"P1": (("AKCAK", ""),)}, 0.9, 0.05, 0.1,
+           {"C": (1, 2, 3), "K": (1, 2, 3)})
+
+    def run_timetrace(p):
+        path = str(tmp_path / "tt.csv")
+        out = p.run_timetrace(_movie(), csv_path=path, **TT_KW)
+        with open(path, "rb") as fh:
+            return out["traces"], out["photometries"], fh.read()
+
+    def per_cycle_gmm(p):
+        scores, fits, raw = p.per_cycle_gmm(gmm_phot, max_fluors=2,
+                                            n_init=2, n_iter=20)
+        return ([(nf, bic) for _, nf, bic, _ in scores.values()],
+                [[(f.means_, f.covars_, f.weights_, f._loglik)
+                  for f in fs] for fs in fits.values()], raw)
+
+    def simulate_signals(p):
+        trie = p.simulate_signals(*sim, sample_size=200, random_seed=3)
+        return sorted((s, sorted(dict(c).items()))
+                      for s, c, _ in trie.leaf_iterator())
+
+    calls = {
+        "run_zstack": lambda p: p.run_zstack(_frames()),
+        "run_timetrace": run_timetrace,
+        "run_timetraces": lambda p: p.run_timetraces(
+            [_movie()], **TT_KW)[0]["photometries"],
+        "stepfit": lambda p: p.stepfit(make_step_traces(9, 30, seed=2)),
+        "fluor_counts": lambda p: p.fluor_counts(tracks, 30000.0, 0.2),
+        "fluor_counts_calibrated": lambda p: p.fluor_counts_calibrated(
+            tracks),
+        "per_cycle_gmm": per_cycle_gmm,
+        "simulate_signals": simulate_signals}
+    for name, call in calls.items():
+        want = call(one)
         for pipe in (multi, mesh_pipe):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 1, item 3"):
-                call(pipe)
-    assert "ROADMAP" in MULTI_DEVICE_GAP
+            _equal(call(pipe), want, name)
+    assert not hasattr(api, "MULTI_DEVICE_GAP")
+    assert not hasattr(Pipeline, "_one_device")
 
 
 # -- multihost: initialize ---------------------------------------------------
