@@ -32,10 +32,9 @@ fields with the card as the default device: its rows against
 ``run_experiment``'s on the same fields (keys, categories and order equal,
 photometry within rtol 1e-5, atol 1e-2), the card against the CPU on one
 field, kernels A and B launched by it (one each a field) and held against
-their twins at its shapes, the wall, its stage split and peak memory; and,
-where Pillow and imageio are installed, the compat image and experiment
-scripts on planted 512x512 tif files. Then the z-stack and single-image
-front doors: the background estimator against its float64 host oracle,
+their twins at its shapes, the wall, its stage split and peak memory.
+Then the z-stack and single-image front doors: the background estimator
+against its float64 host oracle,
 config 2 (32 frames of 512x512 uint16, 800 persistent spots on a sloped,
 breathing background, max_candidates=8192, lean fetch of 2048 slots)
 through ``Pipeline(device="cuda").run_zstack`` (frames/s, the stage
@@ -97,9 +96,25 @@ the sharded step over two entries of the card against the one-device step
 bit for bit, a ``Pipeline`` over that device list on config 4's first 8
 fields against the one-device CSV, and ``multihost.run_experiment`` in two
 processes over gloo, each child's CSV byte for byte the one-process CSV.
+Then the file front doors (group ``files``), with nothing patched: the
+images are read by the port's own TIFF and PNG decoders (the line
+``files_readers`` says whether imageio and Pillow are importable). Config
+4 as 256 uncompressed TIFF files through ``run-experiment`` in a process
+of its own and in this one (both CSVs byte for byte ``run_experiment``'s
+on the array; the read time, fields/s from files, launches of A and B);
+config 2 as one 32-page TIFF through ``zstack`` (rows the API's kept
+fits); the timetrace movie as one 24-page TIFF and as 24 PNG files
+through ``timetrace`` (both CSVs byte for byte ``run_timetrace``'s);
+``detect`` on 8 of config 2's frames (psfs artifacts against
+``find_peptides`` on the card); the compat image and experiment scripts
+on planted tif files, and basic_timetrace_script on the movie's frames
+(on the card; on 8 frames its step fits against its own run on the CPU);
+and the decoder matrix (one config-4 field uncompressed, PackBits,
+Deflate, LZW, with the predictor, big-endian, tiled and as 16-bit PNG:
+each read bit for bit, with its read time).
 ``--phases`` names the groups to run, of headline, experiment, objects,
-zstack, timetrace, fluor, sim, mixtures and parallel (default: all, in
-that order);
+zstack, timetrace, fluor, sim, mixtures, parallel and files (default:
+all, in that order);
 the kernel summary then lists the kernels those groups drove.
 ``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
@@ -111,6 +126,7 @@ CUDA device. Imports no jax.
 """
 
 import argparse
+import ast
 import collections
 import csv
 import json
@@ -135,7 +151,7 @@ KERNELS = ("candidate_map", "fit_quality", "v8_score", "mc_fit", "gmm_em")
 HOST_CORES = ("tracklink", "stepchain", "chisqfit", "trackcsv", "randsiggen")
 # Groups of phases, in the order they run; --phases names a subset.
 PHASES = ("headline", "experiment", "objects", "zstack", "timetrace", "fluor",
-          "sim", "mixtures", "parallel")
+          "sim", "mixtures", "parallel", "files")
 # Config 4 (bench.py's experiment workload): fields, cycles, candidate and
 # spot buckets, timed runs after one warm-up.
 EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
@@ -147,6 +163,13 @@ EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
 OBJ_F, OBJ_CPU_F = 8, 1
 CLASS_RTOL, CLASS_ATOL = 1e-5, 1e-2
 OBJ_APP_FIELDS, OBJ_APP_CYCLES, OBJ_APP_HW, OBJ_APP_SPOTS = 2, 3, 512, 300
+# The file front doors (group files), each cell at its full size: config 4
+# as 256 uncompressed TIFFs (a directory a cycle), config 2 as one 32-page
+# TIFF, the timetrace movie as one 24-page TIFF and as 24 PNGs; detect on
+# FILES_DETECT_T of config 2's frames; basic_timetrace_script on the card
+# and the CPU on the movie's first FILES_TT_CPU_T frames; one config-4
+# field in each entry of the decoder matrix, read FILES_READ_REPS times.
+FILES_DETECT_T, FILES_TT_CPU_T, FILES_READ_REPS = 8, 8, 3
 # Card against CPU on a reduced experiment: 2 fields x 8 cycles of 256x256
 # at config 4's spot density.
 EXP_SMALL = dict(F=2, C=8, H=256, W=256, spots_per_field=500, seed=1)
@@ -698,7 +721,7 @@ def objects_phases(tmpl, dev, stack=None):
     1: its rows equal ``run_experiment``'s on the same fields. Gate 2: the
     card equals the CPU on the first OBJ_CPU_F fields. Both kernels against
     their twins at this path's shapes (one field's cycles). Emits the
-    "objects", "objects_card_vs_cpu" and "objects_apps" lines; returns the
+    "objects" and "objects_card_vs_cpu" lines; returns the
     kernels' launches and numbers. ``stack``: the experiment group's
     config-4 stack, else made here."""
     from fluorosequencingimageanalysis_torch import _device
@@ -838,7 +861,6 @@ def objects_phases(tmpl, dev, stack=None):
     emit("objects_card_vs_cpu", shape=list(part.shape),
          rows=len(cpu1), max_abs_phot_diff=worst_cpu, cpu_s=cpu_s,
          cpu_stages_s=cpu_stages, cpu_threads=torch.get_num_threads())
-    objects_apps(dev)
     _device.set_default_device(None)
     return {
         "launches": {"objects": launches},
@@ -859,13 +881,13 @@ def objects_phases(tmpl, dev, stack=None):
 
 def objects_apps(dev):
     """compat.basic_image_script and compat.basic_experiment_script on
-    planted 512x512 tif files (one directory a cycle, one file a field),
-    with ``--device`` naming the card; the experiment script reuses the
-    image script's psfs pickles, as the reference's flow does. Needs Pillow
-    (the apps write their PNGs with it): where it is missing the
-    "objects_apps" line says so and nothing runs. The apps read images with
-    imageio; where only imageio is missing, this phase reads the planted
-    tif files with Pillow in its place and the line names the reader."""
+    planted 512x512 tif files written by Pillow (one directory a cycle, one
+    file a field), with ``--device`` naming the card; the experiment script
+    reuses the image script's psfs pickles, as the reference's flow does.
+    The apps read the files with the port's own decoder. Needs Pillow (the
+    apps write their PNGs with it): where it is missing the "objects_apps"
+    line says so and nothing runs. Returns the launches of kernels A and B
+    in the two apps."""
     import contextlib
     import glob
     import importlib.util
@@ -875,24 +897,18 @@ def objects_apps(dev):
         emit("objects_apps", ran=False, missing=["PIL"],
              note="the compat apps write their PNGs with Pillow, which "
                   "this machine lacks")
-        return
+        return {}
     from PIL import Image as PILImage
 
     from fluorosequencingimageanalysis_torch.compat import (
         basic_experiment_script, basic_image_script)
-    from fluorosequencingimageanalysis_torch.utils import (
-        imageio as port_imageio)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
     from fluorosequencingimageanalysis_torch.utils.synth import (
         make_experiment_stack)
 
-    def read_with_pillow(path):
-        with PILImage.open(path) as im:
-            return np.asarray(im)
-
-    reader, read_image_array = "imageio", port_imageio.read_image_array
-    if importlib.util.find_spec("imageio") is None:
-        port_imageio.read_image_array = read_with_pillow
-        reader = "Pillow (imageio is not installed here)"
     stack = np.clip(make_experiment_stack(
         OBJ_APP_FIELDS, OBJ_APP_CYCLES, OBJ_APP_HW, OBJ_APP_HW,
         spots_per_field=OBJ_APP_SPOTS, seed=3), 0, 65535).astype(np.uint16)
@@ -907,23 +923,28 @@ def objects_apps(dev):
                 files.append(path)
         out = os.path.join(tmp, "out")
         printed = io.StringIO()
-        try:
-            with contextlib.redirect_stdout(printed):
-                t = time.perf_counter()
-                processed = basic_image_script.main(
-                    ["--device", str(dev), "-L",
-                     os.path.join(tmp, "i.log"), os.path.join(tmp, "images")])
-                image_s = time.perf_counter() - t
-                t = time.perf_counter()
-                mfmc = basic_experiment_script.main(
-                    ["--peptide_files", *files, "--output_directory", out,
-                     "--no_sanity_check_images", "--device", str(dev),
-                     "-L", os.path.join(tmp, "e.log")])
-                exp_s = time.perf_counter() - t
-        finally:
-            port_imageio.read_image_array = read_image_array
+        candidate_map_fused.launches = 0
+        fit_quality.launches = 0
+        with contextlib.redirect_stdout(printed):
+            t = time.perf_counter()
+            processed = basic_image_script.main(
+                ["--device", str(dev), "-L",
+                 os.path.join(tmp, "i.log"), os.path.join(tmp, "images")])
+            image_s = time.perf_counter() - t
+            t = time.perf_counter()
+            mfmc = basic_experiment_script.main(
+                ["--peptide_files", *files, "--output_directory", out,
+                 "--no_sanity_check_images", "--device", str(dev),
+                 "-L", os.path.join(tmp, "e.log")])
+            exp_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = {"candidate_map": candidate_map_fused.launches,
+                    "fit_quality": fit_quality.launches}
         check(len(processed) == len(files), f"the image script processed "
               f"{len(processed)} of {len(files)} images")
+        check(launches["candidate_map"] >= 1 and
+              launches["fit_quality"] >= 1,
+              f"both kernels launched under the compat apps: {launches}")
         for path in files:
             check(all(len(glob.glob(path + f"*_psfs_*.{ext}")) == 1
                       for ext in ("pkl", "csv", "png")),
@@ -946,13 +967,440 @@ def objects_apps(dev):
               "the offsets dict holds every cycle")
         check(glob.glob(os.path.join(out, "category_counts_*.csv")),
               "the experiment script wrote its category counts")
-    emit("objects_apps", ran=True, reader=reader, images=len(files),
+    emit("objects_apps", ran=True, reader="port", writer="Pillow",
+         images=len(files), processed=len(processed),
          shape=[OBJ_APP_FIELDS, OBJ_APP_CYCLES, OBJ_APP_HW, OBJ_APP_HW],
          spots_per_field=OBJ_APP_SPOTS, image_script_s=image_s,
          experiment_script_s=exp_s, psfs_image0=len(psfs),
-         track_rows=len(table) - 1,
+         track_rows=len(table) - 1, launches=launches,
          trace_count=mfmc.trace_count()["ch1"],
          printed_lines=len(printed.getvalue().splitlines()))
+    return launches
+
+
+def in_process_cli(argv):
+    """One subcommand through ``__main__.main`` in this process: (its JSON
+    line, seconds, launches of kernels A and B), the counts set to 0 just
+    before it and read just after."""
+    import contextlib
+    import io
+
+    from fluorosequencingimageanalysis_torch.__main__ import main as cli
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    candidate_map_fused.launches = 0
+    fit_quality.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {"candidate_map": candidate_map_fused.launches,
+                "fit_quality": fit_quality.launches}
+    check(rc == 0, f"the {argv[0]} subcommand returns 0 in process")
+    return (json.loads(printed.getvalue().strip().splitlines()[-1]),
+            seconds, launches)
+
+
+def files_phases(tmpl, dev, stack4=None):
+    """The file front doors on the card, nothing patched: every image is
+    read by the port's own decoders (utils/imageio.py). Inputs are written
+    by the port's TIFF/PNG writers, or by Pillow where the line says so.
+    Each subcommand runs in this process (launch counts set to 0 just
+    before it and read just after); run-experiment and timetrace from the
+    TIFF also in a process of their own (the wall a user sees, start-up
+    included). Each output is held against the API's on the array. Kernels A and B against their twins on the first group of
+    the config-4 stack as read from its files. Emits "files_readers",
+    "files_decoders", "files_experiment", "files_zstack",
+    "files_timetrace", "files_detect", "objects_apps" and
+    "files_timetrace_script"; returns the launches and kernel numbers.
+    ``stack4``: the experiment group's config-4 stack, else made here."""
+    import importlib.util
+    import pickle
+
+    from fluorosequencingimageanalysis_torch import _device
+    from fluorosequencingimageanalysis_torch import __main__ as cli_module
+    from fluorosequencingimageanalysis_torch.api import (GROUP_FIELDS,
+                                                         Pipeline)
+    from fluorosequencingimageanalysis_torch.compat import (
+        basic_timetrace_script)
+    from fluorosequencingimageanalysis_torch.config import (DetectConfig,
+                                                            PipelineConfig)
+    from fluorosequencingimageanalysis_torch.models.detect import (
+        find_peptides)
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        _threshold_and_extract_batch)
+    from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
+        candidate_map_fused, candidate_map_plain)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.utils import (
+        imageio as port_io)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_experiment_stack, make_movie, make_zstack)
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("imageio", "PIL")}
+    emit("files_readers", imageio_importable=have["imageio"],
+         pil_importable=have["PIL"], reader="port",
+         decoder="fluorosequencingimageanalysis_torch/utils/imageio.py")
+    warm = stack4 is not None  # the experiment group ran run_experiment
+    if stack4 is None:
+        stack4 = np.clip(make_experiment_stack(EXP_F, EXP_C), 0,
+                         65535).astype(np.uint16)
+    F_, C_, H, W = stack4.shape
+    launches = {}
+
+    def read_back(path, want, read, what=None, reps=FILES_READ_REPS):
+        """The median ms of ``reps`` reads of ``path``; the array read
+        must be ``want`` bit for bit, with its dtype and shape."""
+        ms = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            got = read(path)
+            ms.append((time.perf_counter() - t) * 1e3)
+        check(got.dtype == want.dtype and got.shape == want.shape and
+              np.array_equal(got, want),
+              f"{what or os.path.basename(path)} reads back bit for bit "
+              f"({got.dtype} {got.shape})")
+        return statistics.median(ms)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # The decoder matrix: one config-4 field in each form.
+        field = stack4[0, 0]
+        forms = {"tiff_uncompressed": {}, "tiff_packbits":
+                 {"compression": "packbits"},
+                 "tiff_deflate": {"compression": "deflate"},
+                 "tiff_lzw": {"compression": "lzw"},
+                 "tiff_deflate_predictor": {"compression": "deflate",
+                                            "predictor": True},
+                 "tiff_lzw_predictor": {"compression": "lzw",
+                                        "predictor": True},
+                 "tiff_big_endian": {"byteorder": ">"},
+                 "tiff_tiled": {"tile": (128, 128)}}
+        decoders = {}
+        for name, kw in forms.items():
+            path = os.path.join(tmp, name + ".tif")
+            port_io.write_tiff(path, field, **kw)
+            decoders[name] = {"bytes": os.path.getsize(path), "read_ms":
+                              read_back(path, field,
+                                        port_io.read_image_array)}
+        path = os.path.join(tmp, "png_16bit.png")
+        port_io.write_png(path, field)
+        decoders["png_16bit"] = {"bytes": os.path.getsize(path), "read_ms":
+                                 read_back(path, field,
+                                           port_io.read_image_array)}
+        if have["PIL"]:
+            from PIL import Image as PILImage
+            path = os.path.join(tmp, "png_16bit_pillow.png")
+            PILImage.fromarray(field).save(path)
+            decoders["png_16bit_pillow_filtered"] = {
+                "bytes": os.path.getsize(path),
+                "read_ms": read_back(path, field, port_io.read_image_array)}
+        emit("files_decoders", shape=[H, W], dtype=str(field.dtype),
+             reads=FILES_READ_REPS, formats=decoders,
+             note="read_ms: median wall of read_image_array on the host, "
+                  "file in the page cache; every form bit-equal")
+
+        # Config 4 from 256 files: run-experiment against run_experiment
+        # on the array.
+        files = []
+        t = time.perf_counter()
+        for c in range(C_):
+            d = os.path.join(tmp, "config4", f"cycle_{c:02d}")
+            os.makedirs(d)
+            for f in range(F_):
+                files.append(os.path.join(d, f"field_{f:02d}.tif"))
+                port_io.write_tiff(files[-1], stack4[f, c])
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded, _ = cli_module._load_stack(files)
+        read_s = time.perf_counter() - t
+        check(loaded.dtype == np.uint16 and np.array_equal(loaded, stack4),
+              "_load_stack returns the config-4 stack from its files")
+        pipe = Pipeline(device=dev)
+        kw = dict(max_candidates=EXP_K, max_spots=EXP_S)
+        mem = {k: os.path.join(tmp, f"mem_{k}.csv")
+               for k in ("tracks", "categories")}
+        if not warm:
+            pipe.run_experiment(stack4, **kw)
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe.run_experiment(stack4, csv_path=mem["tracks"],
+                            category_csv_path=mem["categories"], **kw)
+        torch.cuda.synchronize()
+        mem_s = time.perf_counter() - t
+        argv = ["run-experiment", "--peptide-files", *files,
+                "--max-candidates", str(EXP_K), "--max-spots", str(EXP_S),
+                "--device", str(dev)]
+        summary, in_s, exp_launches = in_process_cli(
+            argv + ["--output-dir", os.path.join(tmp, "exp_in")])
+        n_groups = -(-F_ // GROUP_FIELDS)
+        check(exp_launches == {"candidate_map": n_groups,
+                               "fit_quality": n_groups},
+              f"run-experiment from files launched both kernels once a "
+              f"group: {exp_launches}")
+        sub, cli_s = run_cli(argv + ["--output-dir",
+                                     os.path.join(tmp, "exp_cli")])
+        for what, out in (("in process", summary), ("own process", sub)):
+            for key, ref in (("csv", "tracks"),
+                             ("category_csv", "categories")):
+                with open(out[key], "rb") as a, open(mem[ref], "rb") as b:
+                    check(a.read() == b.read(),
+                          f"run-experiment's {key} ({what}) is byte for "
+                          f"byte run_experiment's on the array")
+        launches["files_run_experiment"] = exp_launches
+        emit("files_experiment", files=len(files), shape=[F_, C_, H, W],
+             dtype="uint16", file_form="uncompressed TIFF, one strip",
+             bytes_per_file=os.path.getsize(files[0]), write_s=write_s,
+             read_s=read_s, read_ms_per_file=read_s * 1e3 / len(files),
+             in_process_wall_s=in_s, fields_per_s_from_files=F_ / in_s,
+             in_memory_wall_s=mem_s, fields_per_s_in_memory=F_ / mem_s,
+             cli_wall_s=cli_s, rows=summary["rows"],
+             launches=exp_launches, csvs_byte_equal=True,
+             note="read_s: _load_stack alone in this process; "
+                  "in_process_wall_s: the subcommand through "
+                  "__main__.main, files to both CSVs; in_memory_wall_s: "
+                  "run_experiment on the host array with both CSVs, "
+                  "warm; cli_wall_s: the subcommand in a "
+                  "process of its own, start-up included")
+
+        # Kernels A and B against their twins on the first group of the
+        # stack as read from its files.
+        imgs = torch.from_numpy(loaded[:GROUP_FIELDS]).to(dev).reshape(
+            -1, H, W).to(torch.float32)
+        cm = candidate_map_fused(imgs, tmpl)
+        err_a = float((cm - candidate_map_plain(imgs, tmpl)).abs().max())
+        check(err_a == 0.0, f"kernel A vs twin at {tuple(imgs.shape)} "
+                            f"(max abs err {err_a})")
+        a_ms = statistics.median(time_ms(
+            lambda: candidate_map_fused(imgs, tmpl), 10))
+        a_plain = statistics.median(time_ms(
+            lambda: candidate_map_plain(imgs, tmpl), 3))
+        a_bound, a_by = bound(2 * imgs.numel() * 4,
+                              imgs.numel() * A_OPS_PER_PIXEL)
+        hs, ws, valid, _ = _threshold_and_extract_batch(cm, EXP_K, 2.0)
+        n_iters = pipe.config.detect.num_iters
+        b = kernel_b_report(imgs, hs, ws, valid, n_iters, 1, reps=3,
+                            plain_reps=1)
+        del imgs, cm, hs, ws, valid
+
+        # Config 2 as one 32-page TIFF through zstack.
+        zs = make_zstack(Z_T)
+        ztif = os.path.join(tmp, "zstack.tif")
+        port_io.write_tiff(ztif, zs)
+        z_read_ms = read_back(ztif, zs, port_io.read_stack_array)
+        api = Pipeline(PipelineConfig(detect=DetectConfig(
+            max_candidates=Z_K)), device=dev).run_zstack(
+                zs, box_size=10, filter_size=10)
+        want = [[str(t_), str(api["center_h"][t_, i]),
+                 str(api["center_w"][t_, i])]
+                for t_ in range(Z_T) for i in np.nonzero(api["keep"][t_])[0]]
+        summary, zin_s, z_launches = in_process_cli(
+            ["zstack", ztif, "--max-candidates", str(Z_K), "--device",
+             str(dev), "--output", os.path.join(tmp, "z.csv")])
+        with open(os.path.join(tmp, "z.csv"), newline="") as fh:
+            table = list(csv.reader(fh))
+        check([r[:3] for r in table[1:]] == want,
+              f"zstack's rows are the API's kept fits ({len(table) - 1}, "
+              f"{len(want)})")
+        check(summary["frames"] == Z_T and
+              z_launches["candidate_map"] >= 1 and
+              z_launches["fit_quality"] >= 1,
+              f"zstack from a {Z_T}-page TIFF: {summary}, {z_launches}")
+        launches["files_zstack"] = z_launches
+        emit("files_zstack", frames=Z_T, file_form=f"one {Z_T}-page "
+             "uncompressed TIFF", bytes=os.path.getsize(ztif),
+             read_ms=z_read_ms, in_process_wall_s=zin_s, rows=len(want),
+             launches=z_launches, rows_equal_api=True)
+
+        # The movie as one 24-page TIFF and as 24 PNGs through timetrace.
+        movie = make_movie(T=TT_T, n_spots=TT_SPOTS)
+        mtif = os.path.join(tmp, "movie.tif")
+        port_io.write_tiff(mtif, movie)
+        pngs = []
+        for f in range(TT_T):
+            pngs.append(os.path.join(tmp, f"frame_{f:02d}.png"))
+            if have["PIL"]:
+                PILImage.fromarray(movie[f]).save(pngs[-1])
+            else:
+                port_io.write_png(pngs[-1], movie[f])
+        tif_read_ms = read_back(mtif, movie, port_io.read_stack_array,
+                                reps=1)
+        png_read_ms = read_back(pngs, movie, lambda ps: np.concatenate(
+            [port_io.read_stack_array(p) for p in ps]), "the movie's PNGs",
+            reps=1)
+        mem_csv = os.path.join(tmp, "tt_mem.csv")
+        ref_out = Pipeline(device=dev).run_timetrace(
+            movie, csv_path=mem_csv, max_candidates=None,
+            photometry_min=None, **SF_KW)
+        with open(mem_csv, "rb") as fh:
+            mem_bytes = fh.read()
+        flags = ["--mirror-start", str(SF_KW["mirror_start"]),
+                 "--chung-kennedy", str(SF_KW["chung_kennedy"]),
+                 "--p-threshold", str(SF_KW["p_threshold"]),
+                 "--device", str(dev)]
+        tt = {}
+        for form, frames in (("tiff", [mtif]), ("png", pngs)):
+            summary, tin_s, t_launches = in_process_cli(
+                ["timetrace", "--frames", *frames, *flags, "--output-dir",
+                 os.path.join(tmp, f"tt_in_{form}")])
+            outs, tt[form] = [summary], {"in_process_wall_s": tin_s,
+                                         "launches": t_launches}
+            if form == "tiff":
+                sub, tt[form]["cli_wall_s"] = run_cli(
+                    ["timetrace", "--frames", *frames, *flags,
+                     "--output-dir", os.path.join(tmp, "tt_cli")])
+                outs.append(sub)
+            for out in outs:
+                with open(out["csv"], "rb") as fh:
+                    check(fh.read() == mem_bytes,
+                          f"timetrace's CSV from {form} is byte for byte "
+                          f"run_timetrace's on the array")
+            check(summary["traces"] == ref_out["trace_count"] and
+                  t_launches["candidate_map"] >= 1 and
+                  t_launches["fit_quality"] >= 1,
+                  f"timetrace from {form}: {summary}, {t_launches}")
+            launches[f"files_timetrace_{form}"] = t_launches
+        tt["tiff"].update(read_ms=tif_read_ms, bytes=os.path.getsize(mtif))
+        tt["png"].update(read_ms=png_read_ms,
+                         writer="Pillow" if have["PIL"] else "port",
+                         bytes=sum(os.path.getsize(p) for p in pngs))
+        emit("files_timetrace", shape=list(movie.shape),
+             traces=ref_out["trace_count"], csv_bytes_equal=True,
+             by_form=tt, note="read_ms: the whole movie, this process")
+
+        # detect on FILES_DETECT_T of config 2's frames.
+        det = []
+        for i in range(FILES_DETECT_T):
+            det.append(os.path.join(tmp, "detect", f"frame_{i:02d}.tif"))
+            os.makedirs(os.path.dirname(det[-1]), exist_ok=True)
+            port_io.write_tiff(det[-1], zs[i])
+        t = time.perf_counter()
+        for p in det:
+            port_io.read_image(p)
+        d_read_s = time.perf_counter() - t
+        d_in, din_s, d_launches = in_process_cli(
+            ["detect", "--device", str(dev), *det])
+        worst = 0.0
+        for i, p in enumerate(det):
+            want = find_peptides(zs[i], device=dev)
+            with open(d_in["artifacts"][p][0], "rb") as fh:
+                got = pickle.load(fh)
+            check(list(got) == list(want) and len(want) > 0,
+                  f"detect's psfs keys of {p} are find_peptides'")
+            for key, r in want.items():
+                g = got[key]
+                worst = max(worst, float(np.abs(
+                    np.subtract(g[:2], r[:2])).max()))
+                check(np.allclose(g[:2], r[:2], rtol=0, atol=B_CENTER)
+                      and np.allclose(g[2:6], r[2:6], rtol=5e-3, atol=5e-3)
+                      and np.allclose(g[9:], r[9:], rtol=5e-3, atol=5e-3)
+                      and np.array_equal(g[7], r[7]),
+                      f"detect's psfs {key} of {p}: {g[:7]} against "
+                      f"{r[:7]}")
+        check(d_launches["candidate_map"] >= 1 and
+              d_launches["fit_quality"] >= 1,
+              f"both kernels launched under detect: {d_launches}")
+        launches["files_detect"] = d_launches
+        emit("files_detect", images=FILES_DETECT_T, shape=[H, W],
+             read_s=d_read_s, in_process_wall_s=din_s,
+             spots=[d_in["spots"][p] for p in det],
+             launches=d_launches, max_center_diff=worst)
+
+        # The reference scripts: the image and experiment scripts on
+        # planted tif files, then basic_timetrace_script on the movie's
+        # frames as per-frame TIFFs.
+        launches["objects_apps"] = objects_apps(dev)
+
+        def timetrace_script(device, count, name):
+            frames = []
+            for f in range(count):
+                frames.append(os.path.join(tmp, name, f"frame_{f:03d}.tif"))
+                os.makedirs(os.path.dirname(frames[-1]), exist_ok=True)
+                port_io.write_tiff(frames[-1], movie[f])
+            out = os.path.join(tmp, name, "out")
+            torch.cuda.synchronize()
+            candidate_map_fused.launches = 0
+            fit_quality.launches = 0
+            t = time.perf_counter()
+            tte = basic_timetrace_script.main(
+                ["--output_directory", out, "--no_sanity_check_images",
+                 "-L", os.path.join(tmp, name + ".log"), "--device",
+                 device, *frames])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            with open(os.path.join(out, "test.csv"), newline="") as fh:
+                rows = list(csv.reader(fh))
+            with open(os.path.join(out, "test.pkl"), "rb") as fh:
+                fits = pickle.load(fh)
+            return {"wall_s": wall, "rows": rows, "fits": fits,
+                    "traces": len(tte.spot_traces),
+                    "launches": {"candidate_map": candidate_map_fused.launches,
+                                 "fit_quality": fit_quality.launches}}
+
+        full = timetrace_script(str(dev), TT_T, "tts_full")
+        check(full["traces"] > 0 and
+              len(full["rows"]) == 1 + full["traces"] * TT_T and
+              full["launches"]["candidate_map"] >= 1 and
+              full["launches"]["fit_quality"] >= 1,
+              f"basic_timetrace_script on {TT_T} frames: "
+              f"{full['traces']} traces, {len(full['rows'])} rows, "
+              f"{full['launches']}")
+        launches["files_timetrace_script"] = full["launches"]
+        card = timetrace_script(str(dev), FILES_TT_CPU_T, "tts_card")
+        cpu = timetrace_script("cpu", FILES_TT_CPU_T, "tts_cpu")
+        _device.set_default_device(None)
+        (fc, ic), (fp, ip) = cpu["fits"], card["fits"]
+        check(card["rows"][0] == cpu["rows"][0] and
+              len(card["rows"]) == len(cpu["rows"]) and
+              fc.keys() == fp.keys() and ic.keys() == ip.keys(),
+              "basic_timetrace_script: the card's rows and step-fit keys "
+              "are the CPU's")
+        worst_tt = 0.0
+        for a, b_ in zip(card["rows"][1:], cpu["rows"][1:]):
+            check(a[:4] == b_[:4] and a[5] == b_[5],
+                  f"basic_timetrace_script row {a[:6]} against {b_[:6]}")
+            for x, y in zip(a[4:], b_[4:]):
+                if x == "None" or y == "None":
+                    check(x == y, f"None cells agree: {x}, {y}")
+                    continue
+                xv = np.asarray(ast.literal_eval(x), float)
+                yv = np.asarray(ast.literal_eval(y), float)
+                worst_tt = max(worst_tt, float(np.abs(xv - yv).max()))
+                check(np.allclose(xv, yv, rtol=CLASS_RTOL, atol=CLASS_ATOL),
+                      f"basic_timetrace_script cell {x} against {y}")
+        for k in fc:
+            check([q[:2] for q in fp[k].trace] ==
+                  [q[:2] for q in fc[k].trace],
+                  f"trace {k}'s positions on the card and the CPU")
+        emit("files_timetrace_script", frames=TT_T, shape=[H, W],
+             file_form="per-frame uncompressed TIFF", wall_s=full["wall_s"],
+             traces=full["traces"], launches=full["launches"],
+             card_vs_cpu={"frames": FILES_TT_CPU_T,
+                          "card_wall_s": card["wall_s"],
+                          "cpu_wall_s": cpu["wall_s"],
+                          "traces": card["traces"],
+                          "max_abs_cell_diff": worst_tt})
+
+    return {
+        "launches": launches,
+        "kernels": {
+            "candidate_map": {"files": {
+                "shape": [GROUP_FIELDS * C_, H, W], "max_abs_err": err_a,
+                "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
+                "bound_by": a_by, "share_of_bound": a_bound / a_ms}},
+            "fit_quality": {"files": {
+                "fits": b["fits"], "num_iters": n_iters,
+                "max_abs_err": b["max_abs_err_all_outputs"],
+                "ms": b["ms_median"], "plain_ms": b["plain_ms_median"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "share_of_bound": b["share_of_bound"]}}}}
 
 
 def psfs_card_vs_cpu(card, cpu, what):
@@ -1659,9 +2107,7 @@ def timetrace_phases(tmpl, dev):
           f"the stepfit CSV: {len(table)} rows, {summary['steps']} steps "
           f"(the API's: {want_steps})")
     emit("cli", command="stepfit", traces=CLI_STEPFIT_N,
-         rows=len(table) - 1, steps=summary["steps"], wall_s=cli_s,
-         note="the timetrace subcommand reads image files through imageio, "
-              "which this machine lacks: it is tested on the CPU only")
+         rows=len(table) - 1, steps=summary["steps"], wall_s=cli_s)
 
     return {
         "launches": {"timetrace": runs[0]["launches"]},
@@ -3880,6 +4326,8 @@ def main():
     if "parallel" in phases:  # the sharded step, a device list, multihost
         done["parallel"] = parallel_phases(
             dev, stack4, done.get("fluor", {}).get("calibrated"), gmm_phot)
+    if "files" in phases:  # the file front doors, nothing patched
+        done["files"] = files_phases(tmpl, dev, stack4)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernel_summary(done, ptxas)}), flush=True)
@@ -3932,6 +4380,11 @@ def kernel_summary(done, ptxas):
                 by_path = g["kernels"][name]
                 paths[name].append((first, g["launches"][group][name],
                                     by_path[first]))
+        if "files" in done:
+            g = done["files"]
+            paths[name].append((
+                "files", g["launches"]["files_run_experiment"][name],
+                g["kernels"][name]["files"]))
     if "fluor" in done:
         f = done["fluor"]
         paths["v8_score"].append(("v8", f["launches"]["v8"]["v8_score"],
@@ -3965,7 +4418,7 @@ def kernel_summary(done, ptxas):
                 done["experiment"]["launches"][name]
             entry["experiment"] = done["experiment"]["kernels"][name]
         for group in ("objects", "zstack", "timetrace", "fluor", "sim",
-                      "mixtures", "parallel"):
+                      "mixtures", "parallel", "files"):
             if group not in done:
                 continue
             for path, n in done[group]["launches"].items():

@@ -302,8 +302,19 @@ def _code_without_imports_and_docstrings(path):
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("module", ["checkpoint", "hashing", "imageio",
-                                    "visualize"])
+def _assert_no_image_library_at_top_level(path):
+    """Image libraries are imported where they are used, so the package
+    imports on a machine without them."""
+    tree = ast.parse(open(path).read())
+    top = [a.name for n in tree.body if isinstance(n, ast.Import)
+           for a in n.names] + [n.module for n in tree.body
+                                if isinstance(n, ast.ImportFrom)
+                                and n.level == 0]
+    assert not [m for m in top if m and m.split(".")[0] in
+                ("PIL", "imageio", "orbax")]
+
+
+@pytest.mark.parametrize("module", ["checkpoint", "hashing", "visualize"])
 def test_copied_utils_are_the_jax_packages(module):
     """The port keeps its own copies of these numpy-only modules; they
     must stay the JAX package's code, statement for statement."""
@@ -312,15 +323,42 @@ def test_copied_utils_are_the_jax_packages(module):
                             "utils", module + ".py")
     assert _code_without_imports_and_docstrings(port_path) == \
         _code_without_imports_and_docstrings(jax_path)
-    # Image libraries are imported where they are used, so the package
-    # imports on a machine without them.
-    tree = ast.parse(open(port_path).read())
-    top = [a.name for n in tree.body if isinstance(n, ast.Import)
-           for a in n.names] + [n.module for n in tree.body
-                                if isinstance(n, ast.ImportFrom)
-                                and n.level == 0]
-    assert not [m for m in top if m and m.split(".")[0] in
-                ("PIL", "imageio", "orbax")]
+    _assert_no_image_library_at_top_level(port_path)
+
+
+def test_image_io_imports_no_image_library_at_top_level():
+    """utils/imageio.py decodes TIFF and PNG itself
+    (tests/test_torch_imageio.py holds it to the JAX package's copy on
+    files); imageio is imported only for the formats it does not read."""
+    _assert_no_image_library_at_top_level(
+        os.path.join(PORT_DIR, "utils", "imageio.py"))
+
+
+# Names of the JAX package's subpackages that the port leaves out for good
+# (ROADMAP "Left out for good": the Python fallbacks of the native cores).
+SUBPACKAGE_GAPS = {"native": {"have_native"}}
+
+
+@pytest.mark.parametrize("sub", ["ops", "models", "parallel", "utils",
+                                 "native"])
+def test_subpackages_export_the_jax_packages_names(sub):
+    """Each subpackage re-exports what the JAX package's does (``__all__``,
+    or the names its ``__init__`` imports where it has none)."""
+    import importlib
+    jax_init = os.path.join(REPO, "fluorosequencingimageanalysis_tpu", sub,
+                            "__init__.py")
+    tree = ast.parse(open(jax_init).read())
+    names = {a.asname or a.name for n in tree.body
+             if isinstance(n, ast.ImportFrom) for a in n.names}
+    for n in tree.body:
+        if isinstance(n, ast.Assign) and n.targets[0].id == "__all__":
+            assert set(ast.literal_eval(n.value)) == names
+    want = names - SUBPACKAGE_GAPS.get(sub, set())
+    port_sub = importlib.import_module(
+        "fluorosequencingimageanalysis_torch." + sub)
+    assert set(port_sub.__all__) == want
+    for name in want:
+        assert getattr(port_sub, name) is not None
 
 
 def test_copied_host_functions_are_the_jax_packages():
