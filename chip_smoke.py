@@ -83,7 +83,15 @@ after 100, beside its bound), ``Pipeline(device="cuda").per_cycle_gmm``
 fitter's float64 device scores against its exact host scores on 20,000
 ladders, the device chi-squared engine against the native core on config
 3's chi-squared set, and the four entry points on the card against the
-CPU on 2,000 x 6; then kernel E beyond its register form (phase
+CPU on 2,000 x 6 (with the BIC's k against scikit-learn's estimator, or
+the port's where scikit-learn is absent); then the reference's own fits
+on the port's estimators, ops/mixture.py and ops/kmeans.py, with no
+scikit-learn (phases ``cluster_fit``: ``_parameter_sweep_2`` on the first
+20,000 traces as an integer track CSV, its split, the card against the
+CPU on 500; ``reference_gmm``: ``_per_cycle_gmm_MP`` on the mixtures,
+its split, EM rounds and operations, ``gmm_raw_photometries``, the dpgmm
+path's AttributeError, the card against the CPU on 3 x 2,000); then
+kernel E beyond its register form (phase
 ``gmm_limits``): ``per_cycle_gmm`` at max_fluors=8 (K = 9) against the
 twin, the largest K, more models than one launch takes, and a sliced call
 against one launch bit for bit. The sim group ends with the reference's
@@ -247,6 +255,16 @@ E_LL_REL, E_MEAN_ABS, E_W_ABS, E_VAR_REL, E_VAR_OF_MOMENT = (
 E_TIE_REL = 1e-3
 PL_T, PL_DROPS = 20_000, 3
 MIX_SMALL_T, MIX_SMALL_F = 2_000, 6
+# The reference's own mixture and cluster fits on the port's estimators
+# (ops/mixture.py, ops/kmeans.py; phases reference_gmm and cluster_fit):
+# _per_cycle_gmm_MP on the mixtures cell above; the cluster-fit sweep
+# (_parameter_sweep_2 at its defaults) on the cell's first SWEEP_T traces
+# as a 20-field integer track CSV; the card against the CPU on REF_SMALL_F
+# cycles x REF_SMALL_T traces and on the sweep's first SWEEP_SMALL_T
+# traces, floats within REF_RTOL.
+SWEEP_T, SWEEP_SMALL_T = 20_000, 500
+REF_SMALL_T, REF_SMALL_F = 2_000, 3
+REF_RTOL = 1e-9
 # Kernel E beyond its register form (phase gmm_limits): per_cycle_gmm at
 # max_fluors=8 (k 2-9, K = 9: the shared-memory form) on config 5's
 # photometries; the form's largest K (gmm::KMAX) on the same data, n_init
@@ -3058,7 +3076,9 @@ def bound_e(groups_n, ks, n_init, n_iter, nbytes):
 
 
 def sklearn_selection(GaussianMixture, small, card_scores, dev):
-    """The BIC-selected k against scikit-learn's kmeans-seeded selection:
+    """The BIC-selected k against scikit-learn's kmeans-seeded selection
+    (``GaussianMixture``: scikit-learn's where it is importable, else the
+    port's, ops/mixture.py, on the default device, the card):
     per cycle of the small photometries (reported: the ladder's levels
     overlap, and sklearn's seeding reaches optima that the batched EM's
     quantile seeding, the JAX package's, may not), and over the JAX
@@ -3111,15 +3131,370 @@ def sklearn_selection(GaussianMixture, small, card_scores, dev):
             "sweep_flips": flips}
 
 
+def count_device_ops(fn):
+    """``fn()`` and the number of aten operations it dispatched (each one
+    launch or more on the card, a view none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def first_difference(a, b, rtol, path="out"):
+    """Where two nested results differ (floats beyond ``rtol``, anything
+    else at all, fitted mixtures in mean order), or None."""
+    if hasattr(a, "means_"):
+        oa, ob = (np.argsort(np.ravel(g.means_)) for g in (a, b))
+        for name in ("weights_", "means_", "covariances_"):
+            u, v = np.ravel(getattr(a, name)), np.ravel(getattr(b, name))
+            u, v = (u, v) if u.size == 1 else (u[oa], v[ob])
+            if u.shape != v.shape or not np.allclose(v, u, rtol=rtol,
+                                                     atol=0):
+                return f"{path}.{name}"
+        if (a.n_iter_, a.converged_) != (b.n_iter_, b.converged_):
+            return f"{path}.n_iter_"
+        return None
+    if isinstance(a, dict):
+        if list(a) != list(b):
+            return path + " keys"
+        for k in a:
+            d = first_difference(a[k], b[k], rtol, f"{path}[{k!r}]")
+            if d:
+                return d
+        return None
+    if isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            return path + " length"
+        for i, (u, v) in enumerate(zip(a, b)):
+            d = first_difference(u, v, rtol, f"{path}[{i}]")
+            if d:
+                return d
+        return None
+    if isinstance(a, np.ndarray) and a.dtype.kind == "f" or isinstance(
+            a, (float, np.floating)):
+        ok = np.shape(a) == np.shape(b) and np.allclose(
+            b, a, rtol=rtol, atol=0, equal_nan=True)
+        return None if ok else path
+    return None if np.array_equal(a, b) else path
+
+
+def _timed(module, name, store):
+    """Replace ``module.name`` with a wrapper that adds its wall to
+    ``store[name]``; returns the original."""
+    import functools
+    orig = getattr(module, name)
+
+    @functools.wraps(orig)
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        outer, store["_in"] = store.get("_in"), name
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            store["_in"] = outer
+            store[name] = store.get(name, 0.0) + time.perf_counter() - t
+
+    setattr(module, name, timed)
+    return orig
+
+
+def cluster_fit_phase(dev, phot):
+    """The reference's cluster-fit sweep on the card: the mixtures cell's
+    first SWEEP_T traces (noisy OFF frames, rounded) as a 20-field integer
+    track CSV through ``compat.MCsimlib._parameter_sweep_2`` at its
+    defaults (the pooled GMM selection over k 2-11, then
+    ``_parallel_cluster_fit`` with ``_cluster_fit_2``'s 10 k-means
+    restarts for each of 0-5 drops), its pickle written into a temporary
+    directory. Reports the wall and its split, traces/s through
+    ``_parallel_cluster_fit``, ``kmeans_batched``'s calls and device span
+    in each stage (the cluster fit's, the mixtures' k-means starts), and
+    the card against the CPU on the first SWEEP_SMALL_T traces. Emits
+    "cluster_fit"; returns the pooled GMM's numbers for reference_gmm."""
+    import pickle
+    import types
+
+    from fluorosequencingimageanalysis_torch import _device
+    from fluorosequencingimageanalysis_torch.compat import MCsimlib
+    from fluorosequencingimageanalysis_torch.inference import gmm as P
+    from fluorosequencingimageanalysis_torch.ops import kmeans as pk
+
+    rows = sorted((v[2], v[1], v[0]) for f in phot["ch1"].values()
+                  for v in f.values())[:SWEEP_T]
+    ints = np.array([r[1] for r in rows])
+    cats = np.array([r[2] for r in rows])
+    split, km = {}, {}
+    orig_kb = pk.kmeans_batched
+
+    def kb(*args, **kwargs):
+        stage = km.setdefault(split.get("_in"), {"calls": 0,
+                                                 "device_span_ms": 0.0})
+        stage["calls"] += 1
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = orig_kb(*args, **kwargs)
+        b.record()
+        b.synchronize()
+        stage["device_span_ms"] += a.elapsed_time(b)
+        return out
+
+    gmm_out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sweep_tracks.csv")
+        small_path = os.path.join(tmp, "sweep_small.csv")
+        write_v8_tracks_csv(path, ints, cats)
+        write_v8_tracks_csv(small_path, ints[:SWEEP_SMALL_T],
+                            cats[:SWEEP_SMALL_T])
+        saved = [(P, n, _timed(P, n, split)) for n in (
+            "read_track_photometries_csv", "_gmm_photometries_MP",
+            "_parallel_cluster_fit")]
+        orig_mp = P._gmm_photometries_MP
+
+        def mp(*args, **kwargs):
+            out = orig_mp(*args, **kwargs)
+            gmm_out["result"] = out
+            return out
+
+        P._gmm_photometries_MP = mp
+        P.pickle = types.SimpleNamespace(
+            dump=lambda *a, **k: split.__setitem__(
+                "pickle", _pickle_dump_s(pickle, *a, **k)))
+        pk.kmeans_batched = kb
+        os.chdir(tmp)
+        try:
+            _device.set_default_device(dev)
+            np.random.seed(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            results, params = MCsimlib._parameter_sweep_2(
+                path, fname_hash="_smoke")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            peak = int(torch.cuda.max_memory_allocated())
+        finally:
+            os.chdir(cwd)
+            for mod, n, f in saved:
+                setattr(mod, n, f)
+            P.pickle = pickle
+            pk.kmeans_batched = orig_kb
+            _device.set_default_device(None)
+        with open(os.path.join(tmp, "sweep_tracks.csv_smoke_results.pkl"),
+                  "rb") as fh:
+            saved_results = pickle.load(fh)
+        cmp = {}
+        for d in (dev, "cpu"):
+            _device.set_default_device(d)
+            os.chdir(tmp)
+            try:
+                np.random.seed(3)
+                t = time.perf_counter()
+                cmp[str(d)] = (MCsimlib._parameter_sweep_2(
+                    small_path, fname_hash="_" + str(d).replace(":", "")),
+                    time.perf_counter() - t)
+            finally:
+                os.chdir(cwd)
+                _device.set_default_device(None)
+    (card_res, _), card_s = cmp[str(dev)]
+    (cpu_res, _), cpu_s = cmp["cpu"]
+    differ = first_difference(cpu_res, card_res, REF_RTOL)
+    fitted, collated, signals, indexed, all_indexed, none_fits = results
+    fm, best_fit, best_nf, best_bic, all_fits, raw = gmm_out["result"]
+    split.pop("_in", None)
+    pcf = split["_parallel_cluster_fit"]
+    line = dict(
+        traces=SWEEP_T, cycles=ints.shape[1], wall_s=wall,
+        split_s={"csv_read": split["read_track_photometries_csv"],
+                 "gmm_fits": split["_gmm_photometries_MP"],
+                 "parallel_cluster_fit": pcf,
+                 "pickle": split.get("pickle"),
+                 "rest": wall - sum(v for v in split.values())},
+        cluster_fit_traces_per_s=SWEEP_T / pcf,
+        kmeans_batched=dict(km, cluster_fit_fits=SWEEP_T * 6 * 10,
+                            note="by stage: _parallel_cluster_fit's (one "
+                                 "call a trace length and cluster count) "
+                                 "and _gmm_photometries_MP's (one call a "
+                                 "mixture: its restarts' starts); device "
+                                 "span: CUDA events around each call, "
+                                 "which ends in a host read"),
+        peak_mem_bytes=peak, signals=sum(signals.values()),
+        distinct_signals=len(signals), none_fits=len(none_fits),
+        fitted=len(all_indexed), downstep_fits=len(indexed),
+        params={k: v for k, v in params[-1].items()
+                if isinstance(v, float)},
+        pickle_items=len(saved_results),
+        card_vs_cpu={"traces": SWEEP_SMALL_T, "card_s": card_s,
+                     "cpu_s": cpu_s, "first_difference": differ,
+                     "signals": [sum(card_res[2].values()),
+                                 sum(cpu_res[2].values())]})
+    emit("cluster_fit", **line)
+    check(len(saved_results) == 5 and saved_results[0][2] == signals,
+          "the sweep's pickle holds its results")
+    check(sum(signals.values()) > 0 and len(all_indexed) +
+          len(none_fits) == SWEEP_T,
+          f"every trace fitted or counted as no fit: {line}")
+    check(km["_parallel_cluster_fit"]["calls"] == 6,
+          f"one kmeans_batched a cluster count: {km}")
+    check(differ is None and card_res[2] == cpu_res[2],
+          f"the sweep on the card against the CPU: {differ}")
+    return {"k": best_nf + 1, "bic": best_bic,
+            "wall_s": split["_gmm_photometries_MP"],
+            "points": int(len(raw)),
+            "ks": [g.n_components for g, _ in all_fits],
+            "em_rounds": [g.em_rounds_ for g, _ in all_fits]}
+
+
+def _pickle_dump_s(pickle, *args, **kwargs):
+    t = time.perf_counter()
+    pickle.dump(*args, **kwargs)
+    return time.perf_counter() - t
+
+
+def reference_gmm_phase(dev, phot, k_pipe, sweep):
+    """The reference's per-cycle mixtures on the card:
+    ``compat.MCsimlib._per_cycle_gmm_MP`` on the mixtures cell (GMM_T x
+    GMM_F, k 2-6, 10 restarts, 100 rounds; its k per cycle beside
+    ``Pipeline.per_cycle_gmm``'s, kernel E), the EM rounds and device
+    operations of a fit, peak memory, ``_gmm_photometries_MP`` on the
+    sweep's CSV (from cluster_fit), ``gmm_raw_photometries`` on cycle 0,
+    the dpgmm path's AttributeError, and the card against the CPU on
+    REF_SMALL_F cycles x REF_SMALL_T traces. Emits "reference_gmm"."""
+    from fluorosequencingimageanalysis_torch import _device
+    from fluorosequencingimageanalysis_torch.compat import MCsimlib
+    from fluorosequencingimageanalysis_torch.compat import (
+        jupyter_development as jd)
+    from fluorosequencingimageanalysis_torch.inference import gmm as P
+    from fluorosequencingimageanalysis_torch.inference.gmm import (
+        _collect_raw)
+    from fluorosequencingimageanalysis_torch.ops.mixture import (
+        GaussianMixture)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_gmm_photometries)
+
+    _device.set_default_device(dev)
+    split = {}
+    fit_gmm = _timed(P, "_fit_gmm", split)
+    bic = _timed(GaussianMixture, "bic", split)
+    try:
+        np.random.seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        scores, fits, raw = MCsimlib._per_cycle_gmm_MP(phot)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = int(torch.cuda.max_memory_allocated())
+        P._fit_gmm = fit_gmm
+        k_ref = [scores[c][1] + 1 for c in range(GMM_F)]
+        every = [g for c in range(GMM_F) for g, _ in fits[c]]
+        t = time.perf_counter()
+        one = _collect_raw(phot, 0)
+        collect_s = time.perf_counter() - t
+        t = time.perf_counter()
+        np.array([[p] for p in one])
+        nested_s = time.perf_counter() - t
+        x = np.asarray(raw[0], np.float64).reshape(-1, 1)
+        np.random.seed(1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g6, ops = count_device_ops(lambda: GaussianMixture(
+            max(GMM_KS), n_init=GMM_N_INIT, max_iter=GMM_N_ITER).fit(x))
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t
+        np.random.seed(1)
+        t = time.perf_counter()
+        GaussianMixture(max(GMM_KS), n_init=GMM_N_INIT,
+                        max_iter=GMM_N_ITER).fit(x)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        t = time.perf_counter()
+        g, mean, std = jd.gmm_raw_photometries(raw[0])
+        raw_s = time.perf_counter() - t
+        try:
+            MCsimlib._gmm_photometries(phot, cycle=0, dpgmm=True)
+            dpgmm_error = None
+        except AttributeError as e:
+            dpgmm_error = str(e)
+        small = make_gmm_photometries(REF_SMALL_T, REF_SMALL_F, seed=2)
+        runs = {}
+        for d in (dev, "cpu"):
+            _device.set_default_device(d)
+            np.random.seed(1)
+            t = time.perf_counter()
+            runs[str(d)] = (MCsimlib._per_cycle_gmm_MP(small),
+                            time.perf_counter() - t)
+    finally:
+        P._fit_gmm = fit_gmm
+        _device.set_default_device(None)
+    (card, card_s), (cpu, cpu_s) = runs[str(dev)], runs["cpu"]
+    k_card = [card[0][c][1] for c in range(REF_SMALL_F)]
+    k_cpu = [cpu[0][c][1] for c in range(REF_SMALL_F)]
+    differ = first_difference(cpu[1], card[1], REF_RTOL)
+    line = dict(
+        traces=GMM_T, cycles=GMM_F, ks=list(GMM_KS), n_init=GMM_N_INIT,
+        n_iter=GMM_N_ITER, wall_s=wall, fits=len(every),
+        wall_per_fit_s=wall / len(every),
+        split_s={"fits": split["_fit_gmm"], "bic": split["bic"],
+                 "copied_host_code": wall - split["_fit_gmm"] -
+                 split["bic"],
+                 "note": "fits: _fit_gmm (k-means starts, EM, host "
+                         "reads); bic: GaussianMixture.bic on the card; "
+                         "copied_host_code: the rest, the copies' Python "
+                         "(each of the 60 _gmm_photometries calls "
+                         "collects its cycle from the dict and builds a "
+                         "nested list and an array of it)"},
+        k_per_cycle=k_ref,
+        k_per_cycle_kernel_e=k_pipe, peak_mem_bytes=peak,
+        em_rounds={"per_fit": [g.em_rounds_ for g in every],
+                   "n_iter_selected": [g.n_iter_ for g in every]},
+        one_fit={"k": max(GMM_KS), "points": len(x), "wall_s": fit_s,
+                 "em_rounds": g6.em_rounds_, "device_ops": ops,
+                 "wall_with_op_count_s": counted_s,
+                 "note": "aten operations dispatched (each one launch or "
+                         "more on the card), k-means start included"},
+        collect_raw_s_per_call=collect_s,
+        collect_raw_calls=GMM_F * len(GMM_KS),
+        nested_array_s_per_call=nested_s,
+        nested_array_note="_gmm_photometries' np.array([[p] for p in "
+                          "raw]), once a fit",
+        gmm_photometries_mp=sweep,
+        gmm_raw_photometries={"wall_s": raw_s, "mean": mean, "std": std},
+        dpgmm_error=dpgmm_error,
+        card_vs_cpu={"traces": REF_SMALL_T, "cycles": REF_SMALL_F,
+                     "k": [k_card, k_cpu], "card_s": card_s,
+                     "cpu_s": cpu_s, "first_difference": differ})
+    emit("reference_gmm", **line)
+    check(all(min(GMM_KS) <= k <= max(GMM_KS) for k in k_ref) and all(
+        np.isfinite(scores[c][2]) for c in range(GMM_F)),
+        f"a finite fit and k in range for each cycle: {k_ref}")
+    check(dpgmm_error == "'BayesianGaussianMixture' object has no "
+                         "attribute 'bic'",
+          f"the dpgmm path raises as the JAX package's: {dpgmm_error}")
+    check(np.isfinite(mean) and std > 0, "gmm_raw_photometries")
+    check(k_card == k_cpu and differ is None,
+          f"the per-cycle mixtures on the card against the CPU: "
+          f"{k_card} {k_cpu} {differ}")
+
+
 def mixtures_phases(dev, ptxas):
     """The remaining batched fitters on the card: kernel E against its twin
     at the reference's full per-cycle mixture fit, ``Pipeline.per_cycle_gmm``
     on config 5's photometries, the batched plateau fitter's device scores
     against its exact host scores, the device chi-squared engine against
-    the native core, and the four entry points on the card against the
-    CPU. Emits the "gmm_em", "per_cycle_gmm", "plateau_device",
-    "chisq_device" and "mixtures_card_vs_cpu" lines; returns kernel E's
-    launches per ``per_cycle_gmm`` call and its numbers."""
+    the native core, the four entry points on the card against the CPU,
+    then the reference's own fits (``cluster_fit_phase``,
+    ``reference_gmm_phase``). Emits the "gmm_em", "per_cycle_gmm",
+    "plateau_device", "chisq_device", "mixtures_card_vs_cpu",
+    "cluster_fit" and "reference_gmm" lines; returns kernel E's launches
+    per ``per_cycle_gmm`` call and its numbers."""
     from fluorosequencingimageanalysis_torch import stepfitting as sf
     from fluorosequencingimageanalysis_torch.api import Pipeline
     from fluorosequencingimageanalysis_torch.inference.gmm import (
@@ -3194,13 +3569,13 @@ def mixtures_phases(dev, ptxas):
                              np.ravel(scores[0][0].means_)),
          launches_note="1 launch of kernel E a call: the n_iter rounds and "
                        "the final log-likelihood pass are one kernel")
-    sk_line = {"available": False}
     try:
         from sklearn.mixture import GaussianMixture
-    except ImportError:
-        GaussianMixture = None
-        print("mixtures: scikit-learn is not importable here; the BIC "
-              "selection against sklearn is skipped", flush=True)
+        estimator = "scikit-learn"
+    except ImportError:  # the card's machine: the port's own estimator
+        from fluorosequencingimageanalysis_torch.ops.mixture import (
+            GaussianMixture)
+        estimator = "port (ops/mixture.py)"
 
     # -- plateau_device: config 5's CSV size through the plateau fitter.
     x = make_v8_workload(PL_T, seed=1)[0]
@@ -3321,10 +3696,12 @@ def mixtures_phases(dev, ptxas):
           cmp["plateau_r2_max_abs"] <= 1e-12 and
           cmp["all_plateau_fits_equal"] and cmp["chisq_differing"] == 0,
           f"the mixture fitters on the card against the CPU: {cmp}")
-    if GaussianMixture is not None:
-        sk_line = sklearn_selection(GaussianMixture, small, card[0], dev)
+    sk_line = sklearn_selection(GaussianMixture, small, card[0], dev)
+    sk_line["estimator"] = estimator
     emit("mixtures_card_vs_cpu", traces=MIX_SMALL_T, cycles=MIX_SMALL_F,
          chisq_shape=[MIX_SMALL_T, 60], **cmp, sklearn=sk_line)
+    sweep = cluster_fit_phase(dev, phot)
+    reference_gmm_phase(dev, phot, k_pipe, sweep)
     limits = gmm_limits_phase(dev, phot)
     return {"launches": {"per_cycle_gmm": runs[0]["launches"],
                          **limits["launches"]},

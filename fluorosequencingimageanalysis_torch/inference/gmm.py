@@ -4,11 +4,15 @@ Counterpart of fluorosequencingimageanalysis_tpu/inference/gmm.py, a copy
 of its host code: the reference's mixture-model family (MCsimlib.py:
 2723-2982 [_cluster_fit/_cluster_fit_2], 2985-3202 [level finding +
 plateau->signal translation + parallel driver], 3209-3395 [GMM fitters +
-adjuster], 3489-3731 [parameter sweeps]) on modern scikit-learn
-(GaussianMixture / BayesianGaussianMixture / KMeans). _MP drivers keep the
-reference signatures and run serially. scikit-learn is imported inside the
-two functions that use it (``_fit_gmm``, ``_cluster_fit_2``), so the
-module imports where it is absent. ``gmm_photometries_batched`` and
+adjuster], 3489-3731 [parameter sweeps]). Where the JAX package fits with
+scikit-learn's GaussianMixture / BayesianGaussianMixture / KMeans, the
+copies import the port's own (ops/mixture.py, ops/kmeans.py: scikit-learn's
+algorithms in PyTorch float64 on ``_device.default_device()``), so nothing
+here needs scikit-learn. _MP drivers keep the reference signatures and run
+serially. ``_parallel_cluster_fit`` fits every trace's k-means of one
+length and cluster count in one ``kmeans_batched`` and hands each trace
+its fits through ``_cluster_fit_2``'s private ``_kmeans`` keyword, so the
+scoring stays the copy. ``gmm_photometries_batched`` and
 ``per_cycle_gmm_batched`` fit through ops/gmm_batch.py (kernel E) on
 ``device``, "cuda" unless the caller passes "cpu"; a device list or a
 ``parallel.mesh.Mesh`` splits the models over its data devices, as the JAX
@@ -26,6 +30,7 @@ from os.path import basename
 
 import numpy as np
 
+from ..ops.kmeans import cluster_fit_prefits
 from ..utils import profiling
 from ..utils.rounding import py2_round as _py2_round
 from scipy.stats import norm
@@ -35,7 +40,7 @@ from .photometries import (_check_no_downsteps, _pairwise,
 
 
 def _fit_gmm(X, n_components, n_init, n_iter, covariance_type, dpgmm=False):
-    from sklearn.mixture import BayesianGaussianMixture, GaussianMixture
+    from ..ops.mixture import BayesianGaussianMixture, GaussianMixture
 
     X = np.asarray(X, dtype=float).reshape(-1, 1)
     if dpgmm:
@@ -369,7 +374,8 @@ def _cluster_fit_2(intensities, max_num_drops=3, zero_level=5000,
                    gaussian_std_max=5, min_num_drops=0, single_fluor_max=None,
                    consider_zl=True, n_init=10, zero_std=10000, **kwargs):
     """KMeans-based plateau fit (MCsimlib.py:2792-2982)."""
-    from sklearn.cluster import KMeans
+    from ..ops.kmeans import KMeans
+    KMeans = kwargs.pop("_kmeans", KMeans)
 
     if intensity_corrections is not None:
         if intensity_correction_div:
@@ -599,9 +605,15 @@ def _parallel_cluster_fit(photometries, num_processes=None, channel="ch1",
                           **kwargs):
     """(MCsimlib.py:3147-3202) — serial equivalent. Unknown kwargs the
     reference's Pool call would silently carry are filtered to
-    _cluster_fit_2's **kwargs the same way."""
+    _cluster_fit_2's **kwargs the same way. The k-means of every trace
+    run first, batched (ops/kmeans.py::batched_trace_fits: one
+    ``kmeans_batched`` a trace length and cluster count, the random state
+    drawn in the loop's order), and reach ``_cluster_fit_2`` through its
+    ``_kmeans`` keyword."""
     kwargs = {k: v for k, v in kwargs.items()
               if k not in ("algorithm", "channel", "version", "use_pdf")}
+    prefit = cluster_fit_prefits(photometries, channel, kwargs,
+                                 _cluster_fit_2)
     fitted_photometries = {}
     collated_fits = {}
     indexed_fits = {}
@@ -613,7 +625,7 @@ def _parallel_cluster_fit(photometries, num_processes=None, channel="ch1",
         for field, fdict in cdict.items():
             for (h, w), (categories, intensities, r) in fdict.items():
                 fit, score, is_zero, fluor_intensity = _cluster_fit_2(
-                    intensities, **kwargs)
+                    intensities, **kwargs, **next(prefit))
                 if fit is None:
                     none_fits.append(r)
                     continue

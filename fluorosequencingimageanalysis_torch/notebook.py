@@ -319,7 +319,7 @@ def grab_ith_jth_intensities(all_fit_info, i=1, j=5, grab_signal=None,
 def gmm_raw_photometries(raw_photometries):
     """One-component GMM of raw photometries -> (model, mean, std)
     (jupyter_development.py:174-180)."""
-    from sklearn.mixture import GaussianMixture
+    from .ops.mixture import GaussianMixture
     nested = [[p] for p in raw_photometries]
     g = GaussianMixture(n_components=1, n_init=10, max_iter=100,
                         covariance_type="full")

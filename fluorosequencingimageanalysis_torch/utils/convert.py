@@ -16,8 +16,10 @@ the same fields). Ignored:
 between the packages by its field names (the JAX package returns numpy or
 jax arrays, the port tensors or numpy), so tests can feed both sides the
 same thing. ``timetrace_result_arrays`` flattens either package's
-``run_timetrace`` result into comparable numpy arrays. Nothing here
-imports the JAX package.
+``run_timetrace`` result into comparable numpy arrays. ``port_mixture``
+makes a fitted port ``GaussianMixture`` from a fit's weights, means and
+covariances (a scikit-learn estimator's or a ``BatchedGMM1D``'s). Nothing
+here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -121,3 +123,23 @@ def timetrace_result_arrays(out):
         "ck": [np.asarray(inter[k]["ck_filtered_photometries"].trace,
                           np.float64) for k in keys],
     }
+
+
+def port_mixture(weights, means, covariances, covariance_type="full"):
+    """A fitted ``ops.mixture.GaussianMixture`` with these parameters (1D):
+    its ``predict``, ``predict_proba``, ``score_samples``, ``bic`` and
+    ``aic`` score X as the fit they came from does. ``covariances`` may
+    come in any of the shapes scikit-learn or ``BatchedGMM1D`` keep them
+    in."""
+    from ..ops.mixture import GaussianMixture, _flat, _shape
+    weights = np.asarray(weights, np.float64).reshape(-1)
+    k = weights.shape[0]
+    g = GaussianMixture(n_components=k, covariance_type=covariance_type)
+    cov = _flat(covariances, covariance_type, k)
+    g.weights_ = weights
+    g.means_ = np.asarray(means, np.float64).reshape(k, 1)
+    g.covariances_ = _shape(cov, covariance_type, "cov")
+    g.precisions_cholesky_ = _shape(1.0 / np.sqrt(cov), covariance_type,
+                                    "cov")
+    g.precisions_ = g.precisions_cholesky_ ** 2
+    return g

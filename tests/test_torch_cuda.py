@@ -845,6 +845,50 @@ def test_mixture_fitters_on_the_card_match_cpu(dev):
         chi_squared_fit_batch(traces, num_steps=8, engine="native")
 
 
+@pytest.mark.parametrize("cov_type", ["full", "tied", "diag", "spherical"])
+def test_mixture_estimators_on_the_card_match_cpu(dev, cov_type):
+    """The port's KMeans (ops/kmeans.py) and GaussianMixture and
+    BayesianGaussianMixture (ops/mixture.py) on the card against the CPU
+    from the same random state: labels, n_iter and the state equal;
+    parameters within rtol 1e-9 (components in mean order)."""
+    from fluorosequencingimageanalysis_torch.ops.kmeans import (
+        kmeans_batched)
+    from fluorosequencingimageanalysis_torch.ops.mixture import (
+        BayesianGaussianMixture, GaussianMixture)
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_v8_workload)
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.normal(m, 300, 700) for m in
+                        (2000, 30000, 61000)]).reshape(-1, 1)
+    traces = np.rint(make_v8_workload(400, seed=4)[0])
+    out = {}
+    for d in ("cuda", "cpu"):
+        np.random.seed(5)
+        g = GaussianMixture(4, covariance_type=cov_type, n_init=4,
+                            device=d).fit(x)
+        b = BayesianGaussianMixture(n_components=3,
+                                    covariance_type=cov_type,
+                                    device=d).fit(x)
+        k = kmeans_batched(traces, 4, 10, device=d)
+        s = np.random.get_state()
+        out[d] = (g, b, k, s[1].copy(), s[2])
+    (g1, b1, k1, s1, p1), (g2, b2, k2, s2, p2) = out["cuda"], out["cpu"]
+    assert np.array_equal(s1, s2) and p1 == p2
+    for name in ("labels", "n_iter", "n_distinct"):
+        assert np.array_equal(k1[name], k2[name]), name
+    np.testing.assert_allclose(k1["centers"], k2["centers"], rtol=1e-9)
+    np.testing.assert_allclose(k1["inertia"], k2["inertia"], rtol=1e-9)
+    for a, c in ((g1, g2), (b1, b2)):
+        assert a.n_iter_ == c.n_iter_ and a.converged_ == c.converged_
+        oa, oc = np.argsort(a.means_[:, 0]), np.argsort(c.means_[:, 0])
+        np.testing.assert_allclose(a.means_[oa], c.means_[oc], rtol=1e-9)
+        np.testing.assert_allclose(a.weights_[oa], c.weights_[oc],
+                                   rtol=1e-9)
+        np.testing.assert_allclose(a.lower_bound_, c.lower_bound_,
+                                   rtol=1e-9)
+    np.testing.assert_allclose(g1.bic(x), g2.bic(x), rtol=1e-9)
+
+
 def test_class_path_on_the_card_matches_cpu(dev, tmp_path, monkeypatch):
     """The object layer's class path (detection through kernels A and B,
     registration, tracking, the batched photometry, the track CSV) with

@@ -71,6 +71,8 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.ops.fused_mc_fit",
     "fluorosequencingimageanalysis_torch.tools.ab_mc_fit",
     "fluorosequencingimageanalysis_torch.ops.gmm_batch",
+    "fluorosequencingimageanalysis_torch.ops.kmeans",
+    "fluorosequencingimageanalysis_torch.ops.mixture",
     "fluorosequencingimageanalysis_torch.ops.fused_gmm_em",
     "fluorosequencingimageanalysis_torch.tools.ab_gmm_em",
     "fluorosequencingimageanalysis_torch.ops.plateau_batch",
@@ -622,12 +624,14 @@ def test_copied_step_fit_modules_are_the_jax_packages(rel, differs):
                                 "lognormal_fit_v8_from_csv"]),
     ("inference/calibration.py", []),
     ("inference/background.py", []),
-    ("notebook.py", [])])
+    ("notebook.py", ["gmm_raw_photometries"])])
 def test_copied_inference_modules_are_the_jax_packages(rel, differs):
     """The host half of fluor counting is copied: every function is the
     JAX package's statement for statement, apart from the CSV reader (a
-    native parser that fails to build raises) and the two fitters whose
-    ``mesh`` argument became ``device``."""
+    native parser that fails to build raises), the two fitters whose
+    ``mesh`` argument became ``device`` and ``gmm_raw_photometries``,
+    which imports the port's GaussianMixture where the JAX package imports
+    scikit-learn's."""
     got = _definitions(os.path.join(PORT_DIR, rel))
     want = _definitions(os.path.join(
         REPO, "fluorosequencingimageanalysis_tpu", rel))
@@ -640,6 +644,30 @@ def test_copied_inference_modules_are_the_jax_packages(rel, differs):
             assert got[n].replace("device", "mesh").replace(
                 "Constant(value='cuda')", "Constant(value=None)") == want[n]
         assert "mesh" not in text.split('"""', 2)[2]
+    if rel == "notebook.py":
+        got, _ = _top_functions(os.path.join(PORT_DIR, rel))
+        want, _ = _top_functions(os.path.join(
+            REPO, "fluorosequencingimageanalysis_tpu", rel))
+        node = got["gmm_raw_photometries"]
+        assert [(i.level, i.module) for i in ast.walk(node)
+                if isinstance(i, ast.ImportFrom)] == [(1, "ops.mixture")]
+        assert ast.dump(_drop(node, (ast.ImportFrom,))) == ast.dump(
+            _drop(want["gmm_raw_photometries"], (ast.ImportFrom,)))
+
+
+def test_no_port_module_imports_sklearn():
+    """The port fits its mixtures and clusterings with its own estimators
+    (ops/mixture.py, ops/kmeans.py): no module imports scikit-learn, at
+    its top or inside a function."""
+    seen = 0
+    for root, dirs, files in os.walk(PORT_DIR):
+        dirs[:] = [d for d in dirs if d != "_build"]
+        for f in files:
+            if f.endswith(".py"):
+                seen += 1
+                for name in _imported_names(os.path.join(root, f)):
+                    assert name.split(".")[0] != "sklearn", (f, name)
+    assert seen >= 76
 
 
 def test_scorer_host_functions_and_lazy_imports():
@@ -821,10 +849,13 @@ def _as_mesh(node):
 def test_mixture_modules_are_the_jax_packages():
     """The host halves of the mixtures slice are copies: the legacy fitters
     with no difference; inference/gmm.py but for the two functions that
-    import scikit-learn where they use it and the two whose ``mesh`` became
-    ``device`` (and gained stage timers); the plateau fitter's tables, host
-    scorer and public functions (those gained ``device``); the EM's
-    starts."""
+    import the port's estimators where the JAX package imports
+    scikit-learn's (``_cluster_fit_2`` also takes its KMeans from the
+    private ``_kmeans`` keyword), ``_parallel_cluster_fit``, the one body
+    that changed (it batches the k-means and passes each trace its fits),
+    and the two whose ``mesh`` became ``device`` (and gained stage
+    timers); the plateau fitter's tables, host scorer and public functions
+    (those gained ``device``); the EM's starts."""
     jax_dir = os.path.join(REPO, "fluorosequencingimageanalysis_tpu")
     got = _definitions(os.path.join(PORT_DIR, "inference",
                                     "lognormal_legacy.py"))
@@ -839,13 +870,31 @@ def test_mixture_modules_are_the_jax_packages():
     assert sorted(got) == sorted(want) and len(got) >= 20
     differs = [n for n in got if ast.dump(got[n]) != ast.dump(want[n])]
     assert differs == ["_fit_gmm", "gmm_photometries_batched",
-                       "per_cycle_gmm_batched", "_cluster_fit_2"]
-    for n in ("_fit_gmm", "_cluster_fit_2"):
-        imports = [ast.unparse(i) for i in ast.walk(got[n])
+                       "per_cycle_gmm_batched", "_cluster_fit_2",
+                       "_parallel_cluster_fit"]
+    for n, module in (("_fit_gmm", "ops.mixture"),
+                      ("_cluster_fit_2", "ops.kmeans")):
+        imports = [(i.level, i.module) for i in ast.walk(got[n])
                    if isinstance(i, ast.ImportFrom)]
-        assert all("sklearn" in i for i in imports) and imports
-        assert ast.dump(_drop(got[n], (ast.ImportFrom,))) == \
-            ast.dump(want[n])
+        assert imports == [(2, module)], (n, imports)
+        node = _drop(got[n], (ast.ImportFrom,))
+        if n == "_cluster_fit_2":
+            first = node.body[0]
+            assert ast.unparse(first) == \
+                "KMeans = kwargs.pop('_kmeans', KMeans)"
+            node.body = node.body[1:]
+        assert ast.dump(node) == ast.dump(want[n])
+    node = got["_parallel_cluster_fit"]
+    assert ast.unparse(node.body[1]) == (
+        "prefit = cluster_fit_prefits(photometries, channel, kwargs, "
+        "_cluster_fit_2)")
+    node.body = node.body[:1] + node.body[2:]
+    calls = [c for c in ast.walk(node) if isinstance(c, ast.Call) and
+             ast.unparse(c.func) == "_cluster_fit_2"]
+    assert len(calls) == 1
+    assert ast.unparse(calls[0].keywords[-1]) == "**next(prefit)"
+    calls[0].keywords = calls[0].keywords[:-1]
+    assert ast.dump(node) == ast.dump(want["_parallel_cluster_fit"])
     for n in ("gmm_photometries_batched", "per_cycle_gmm_batched"):
         assert _as_mesh(_unwrap_stages(got[n])) == ast.dump(want[n])
     top = [a.name for a in tree.body if isinstance(a, ast.Import)
