@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import logging
 import warnings
 
@@ -67,6 +68,27 @@ EXPERIMENT_KEYS = ("offsets_h", "offsets_w", "spot_rh", "spot_rw",
 logger = logging.getLogger(__name__)
 
 
+def _traced(method):
+    """A Pipeline method that runs with the process's tracing switch on
+    (``utils.profiling.tracing``) where the Pipeline has ``profile``."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        with profiling.tracing(self.profile):
+            return method(self, *args, **kwargs)
+    return call
+
+
+def _count_detected(cand_count, bucket):
+    """Count the images of a fetched ``cand_count`` and their candidates
+    (capped at ``bucket``, None for no cap) in ``detect/images`` and
+    ``detect/candidates``."""
+    cand_count = np.asarray(cand_count)
+    if bucket is not None:
+        cand_count = np.minimum(cand_count, bucket)
+    profiling.bump("detect/images", int(cand_count.size))
+    profiling.bump("detect/candidates", int(cand_count.sum()))
+
+
 def _normalize_stack(stack):
     """Host-side dtype normalisation; tensors pass through untouched."""
     if isinstance(stack, torch.Tensor):
@@ -82,12 +104,13 @@ class _GroupUploader:
     device.
 
     A piece bound for a CUDA device uploads from one pinned copy of the
-    host stack (made at the first such piece) on a side copy stream of
-    its device, behind an event that ``take`` makes that device's current
-    stream wait on. A piece of a stack that already lies on the piece's
-    device is sliced, not copied, unless ``from_host`` (the caller's
-    frames came from the host, so every piece counts as an upload); a
-    stack on another device is copied across."""
+    host stack (made at the first such piece, in the host-clock span
+    ``api/upload/pin``) on a side copy stream of its device, behind an
+    event that ``take`` makes that device's current stream wait on. A
+    piece of a stack that already lies on the piece's device is sliced,
+    not copied, unless ``from_host`` (the caller's frames came from the
+    host, so every piece counts as an upload); a stack on another device
+    is copied across."""
 
     def __init__(self, stack, pieces, from_host=False):
         self.stack, self.pieces, self.from_host = stack, pieces, from_host
@@ -106,8 +129,9 @@ class _GroupUploader:
             return
         if dev.type == "cuda" and self.stack.device.type == "cpu":
             if self.host is None:
-                self.host = (self.stack if self.stack.is_pinned()
-                             else self.stack.pin_memory())
+                with profiling.span("api/upload/pin"):
+                    self.host = (self.stack if self.stack.is_pinned()
+                                 else self.stack.pin_memory())
             part = self.host[lo:hi]
             if dev not in self.streams:
                 self.streams[dev] = torch.cuda.Stream(dev)
@@ -159,8 +183,11 @@ class Pipeline:
                 ``self.device``, where the work that is not sharded runs
                 (the detection of a movie's first frame, its photometry).
             store: utils.checkpoint.ArtifactStore for run caching, or None.
-            profile: record host-clock stage timings into
-                ``utils.profiling``'s registry.
+            profile: trace each call: the process's tracing switch is
+                on while it runs (``utils.profiling.tracing``), so its
+                ``api/*`` stages and the spans below them record host and
+                device time into ``utils.profiling``'s registry and show
+                in a ``torch.profiler`` timeline.
         """
         from .parallel.mesh import Mesh, make_mesh
 
@@ -196,7 +223,7 @@ class Pipeline:
 
     def _stage(self, name):
         if self.profile:
-            return profiling.stage(name)
+            return profiling.span(name)
         return contextlib.nullcontext()
 
     def _step_kwargs(self, max_candidates=None, photometry_method=None,
@@ -234,6 +261,7 @@ class Pipeline:
                            sorted(keys) if keys is not None else None,
                            device_method, photometry_min), stack_key
 
+    @_traced
     def run_stack(self, stack, max_candidates=None, max_spots=None,
                   keys=None, stack_key=None, photometry_method=None,
                   photometry_min="config"):
@@ -348,8 +376,9 @@ class Pipeline:
 
         def resolve(item):
             fetched, event, grp, lo = item
-            if event is not None:
-                event.synchronize()
+            with profiling.span("api/fetch_wait"):
+                if event is not None:
+                    event.synchronize()
             out = {k: v.numpy() for k, v in fetched.items()}
             profiling.bump("ledger/result_fetches", len(out))
             profiling.bump("ledger/fetch_bytes",
@@ -378,6 +407,7 @@ class Pipeline:
                                   for k in keys},
                             meta={"stage": "run_stack"})
 
+    @_traced
     def run_zstack(self, stack, box_size=10, filter_size=10,
                    max_candidates=None, return_background=False,
                    psfs=False, stack_key=None, lean=False,
@@ -492,8 +522,9 @@ class Pipeline:
 
         def collect(item):
             names, host, event = item
-            if event is not None:
-                event.synchronize()
+            with profiling.span("api/fetch_wait"):
+                if event is not None:
+                    event.synchronize()
             out = {k: v.numpy() for k, v in zip(names, host)}
             profiling.bump("ledger/result_fetches", len(out))
             profiling.bump("ledger/fetch_bytes",
@@ -508,9 +539,11 @@ class Pipeline:
             grp = uploader.take(i)
             profiling.bump("ledger/step_dispatches")
             with torch.no_grad():
-                background = stack_background(
-                    grp, box_size=box_size, filter_size=filter_size)
-                subtracted = widen(grp) - background
+                with profiling.span("api/zstack/background",
+                                    device=grp.device):
+                    background = stack_background(
+                        grp, box_size=box_size, filter_size=filter_size)
+                    subtracted = widen(grp) - background
                 extra = {}
                 if return_background:
                     extra["background"] = background
@@ -590,6 +623,7 @@ class Pipeline:
                         "_lean_f32", "_lean_ints", "_lean_flags",
                         "_lean_spot_count", "_lean_cand_count")]
                     out = dict(unpack_spot_buckets(*packed), **out)
+        _count_detected(out["cand_count"], None if exhaustive else mc)
         if not exhaustive:
             warn_candidate_overflow(out["cand_count"], mc, "run_zstack")
             if lean and (out["spot_count"] > n_spots_bucket).any():
@@ -611,6 +645,7 @@ class Pipeline:
             self.store.save(key, out, meta={"stage": "run_zstack"})
         return out
 
+    @_traced
     def run_experiment(self, stacks, csv_path=None, max_candidates=None,
                        max_spots=None, candidate_radius=2,
                        category_csv_path=None, category_csv_filtered=True,
@@ -769,6 +804,8 @@ class Pipeline:
             n_over = sum(int(o["spot_overflow"].sum()) for o in outs)
             n_cand_over = sum(int((o["cand_count"] > mc_eff).sum())
                               for o in outs)
+            for o in outs:
+                _count_detected(o["cand_count"], mc_eff)
             if n_over:
                 logger.warning(
                     "run_experiment: %d (field, cycle) images overflowed "
@@ -929,6 +966,7 @@ class Pipeline:
                 "csv_path": csv_path,
                 "category_csv_path": category_csv_path}
 
+    @_traced
     def run_timetrace(self, movie, csv_path=None, search_radius=3,
                       s_n_cutoff=3.0, max_candidates=None,
                       photometry_min="config", mirror_start=None,
@@ -1118,6 +1156,7 @@ class Pipeline:
                 "step_fit_intermediates": intermediates,
                 "trace_count": len(spot_traces), "csv_path": csv_path}
 
+    @_traced
     def run_timetraces(self, movies, csv_paths=None, prefetch=None,
                        **kwargs):
         """Batch movie front door: run_timetrace over a sequence of movies
@@ -1165,6 +1204,7 @@ class Pipeline:
                 **kwargs))
         return outs
 
+    @_traced
     def run_files(self, paths_by_cycle, **kwargs):
         """Like run_stack, from image files: paths_by_cycle is a list (per
         cycle) of lists (per field) of image paths."""
@@ -1179,6 +1219,7 @@ class Pipeline:
 
     # -- traces --------------------------------------------------------------
 
+    @_traced
     def stepfit(self, photometries):
         """Batched step fitting over an (N, T) photometry array with
         config.stepfit's parameters.
@@ -1196,6 +1237,7 @@ class Pipeline:
                                    window_radius=sf.window_radius,
                                    device=self._ops_device)
 
+    @_traced
     def chi_squared_stepfit(self, photometries, num_steps_multiplier=1,
                             num_steps=None, min_step_length=2,
                             min_step_magnitude=0.0,
@@ -1219,6 +1261,7 @@ class Pipeline:
 
     # -- inference -----------------------------------------------------------
 
+    @_traced
     def fluor_counts(self, tracks, beta, beta_sigma, quench_factors=None,
                      alpha_adjust=0.0, **kwargs):
         """v8 lognormal fluor counting.
@@ -1271,6 +1314,7 @@ class Pipeline:
                                if ln.max_deviation is not None else 3),
                 quench_factors=quench_factors, device=device)
 
+    @_traced
     def fluor_counts_calibrated(self, tracks, channel="ch1", beta=None,
                                 beta_sigma=0.2, truncate=0, ddif=0.0,
                                 max_possible=5, allow_multidrop=True,
@@ -1367,6 +1411,7 @@ class Pipeline:
                        "original_beta_sigma": float(original_bs)}
         return signals, total, none_count, fit_info, calibration
 
+    @_traced
     def per_cycle_gmm(self, photometries, min_fluors=1, max_fluors=5,
                       n_init=10, n_iter=100, cycles=None, lower_bound=None,
                       seed=0):
@@ -1388,6 +1433,7 @@ class Pipeline:
 
     # -- simulation ----------------------------------------------------------
 
+    @_traced
     def simulate_signals(self, peptides, p, b, u, windows, sample_size=100,
                          random_seed=None):
         """Monte-Carlo signal trie (MCsimlib.py:1787-1849) from the native

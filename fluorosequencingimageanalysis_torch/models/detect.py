@@ -43,6 +43,7 @@ from ..ops.fused_mc_fit import mc_fit
 from ..ops.gaussian import gauss2d_image
 from ..ops.mc_fit import grids, mc_model, normalise_patches, sample_params
 from ..ops.quality import illumina_s_n, r_squared, rmse
+from ..utils import profiling
 from ..utils.rounding import py2_round
 
 logger = logging.getLogger(__name__)
@@ -79,20 +80,25 @@ def detect_and_fit_batch(images, median_filter_size=5,
                          correlation_matrix=None, c_std=2.0,
                          r_2_threshold=0.7, consolidation_radius=4.0,
                          max_candidates=4096, num_iters=60, theta_starts=1):
-    """Batched detection + fit of (B, H, W) float32 images."""
+    """Batched detection + fit of (B, H, W) float32 images. Traced
+    spans (``utils.profiling.span``): ``api/detect/candidates`` (kernel A,
+    the threshold, the ordered extraction) and ``api/detect/consolidate``
+    (the NMS)."""
     if correlation_matrix is None:
         correlation_matrix = DEFAULT_CORRELATION_MATRIX
-    hs, ws, valid, count = find_candidates_batch(
-        images, median_filter_size=median_filter_size,
-        correlation_matrix=np.asarray(correlation_matrix), c_std=c_std,
-        max_candidates=max_candidates)
+    with profiling.span("api/detect/candidates", device=images.device):
+        hs, ws, valid, count = find_candidates_batch(
+            images, median_filter_size=median_filter_size,
+            correlation_matrix=np.asarray(correlation_matrix), c_std=c_std,
+            max_candidates=max_candidates)
     params, center_h, center_w, rm, r2, sn = _fit_quality_core(
         images, hs, ws, num_iters, theta_starts)
     # ~(r2 < thr), not (r2 >= thr): the reference discards a fit only if
     # r_2 < threshold, so a NaN R^2 (flat saturated patch) is kept.
     passed = valid & ~(r2 < r_2_threshold)
-    keep = consolidate(center_h, center_w, r2, passed,
-                       radius=consolidation_radius)
+    with profiling.span("api/detect/consolidate", device=images.device):
+        keep = consolidate(center_h, center_w, r2, passed,
+                           radius=consolidation_radius)
     return SpotFindResult(hs, ws, params, center_h, center_w, rm, r2, sn,
                           keep, valid, count)
 

@@ -8,12 +8,18 @@ as a parallel fixpoint over the rival adjacency: an undecided fit is KEPT
 once no higher-priority rival is kept or undecided, and SUPPRESSED once a
 higher-priority rival is kept. ``consolidate_host`` is the same rule as a
 spatially binned numpy loop, for candidate sets of any size.
+
+``consolidate`` reads the host once per fixpoint round (whether any fit
+is undecided) and counts its rounds in ``utils.profiling``'s counter
+``detect/consolidate_rounds``, once per call.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 # Bound on B * N * N adjacency entries evaluated at once (memory of the
 # float distance and bool matrices).
@@ -27,6 +33,8 @@ def _score(r2, valid):
 
 
 def _consolidate_group(ch, cw, r2, v, radius, cand_h=None, cand_w=None):
+    """The keep mask of one group of images, and the fixpoint rounds it
+    took."""
     n = ch.shape[-1]
     idx = torch.arange(n, device=ch.device)
     d2 = ((ch[..., :, None] - ch[..., None, :]) ** 2 +
@@ -46,13 +54,15 @@ def _consolidate_group(ch, cw, r2, v, radius, cand_h=None, cand_w=None):
         del cheb
     kept = torch.zeros_like(v)
     undecided = v.clone()
+    rounds = 0
     while bool(undecided.any()):
+        rounds += 1
         blocked = (adj & (kept | undecided)[..., None, :]).any(dim=-1)
         new_kept = undecided & ~blocked
         suppressed = undecided & (adj & kept[..., None, :]).any(dim=-1)
         kept = kept | new_kept
         undecided = undecided & ~new_kept & ~suppressed
-    return kept
+    return kept, rounds
 
 
 def consolidate(centers_h, centers_w, r2, valid, radius=4.0, cand_h=None,
@@ -79,9 +89,13 @@ def consolidate(centers_h, centers_w, r2, valid, radius=4.0, cand_h=None,
     B = flat[0].shape[0]
     group = max(1, _MAX_PAIRS // max(n * n, 1))
     parts = []
+    rounds = 0
     for lo in range(0, B, group):
         sl = [a[lo:lo + group] for a in flat]
-        parts.append(_consolidate_group(*sl[:4], radius, *sl[4:]))
+        kept, r = _consolidate_group(*sl[:4], radius, *sl[4:])
+        parts.append(kept)
+        rounds += r
+    profiling.bump("detect/consolidate_rounds", rounds)
     keep = torch.cat(parts) if parts else torch.zeros_like(flat[3])
     return keep.reshape(*lead, n)
 

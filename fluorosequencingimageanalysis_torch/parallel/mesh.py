@@ -37,6 +37,7 @@ from ..models.detect import SpotFindResult, detect_and_fit_batch
 from ..ops import photometry as phot_ops
 from ..ops.candidates import topk_lowest_index
 from ..ops.registration import phase_correlate_stack
+from ..utils import profiling
 from ..utils.rounding import py2_round_device_i32
 
 PHOTOMETRY_METHODS = ("mexican_hat", "simple", "maximum", "gaussian_volume",
@@ -197,6 +198,10 @@ def experiment_step(stack, median_filter_size=5, c_std=2.0,
     them, in order, when there are more than one and the count divides;
     the results return to the stack's device.
 
+    Traced spans (``utils.profiling.span``): ``api/step/registration``,
+    the detection's (``detect_and_fit_batch``) and
+    ``api/step/photometry`` (the compaction and the photometry).
+
     Returns a dict of tensors on the stack's device; see
     ``experiment_step_sharded`` in the JAX package for each key's meaning:
     offsets_h/w [F, C]; params [F, C, K, 7]; keep, center_h/w [F, C, K];
@@ -219,7 +224,8 @@ def experiment_step(stack, median_filter_size=5, c_std=2.0,
             "bucket, so it can never hold more entries")
 
     # 1. Registration of consecutive cycles, per field.
-    off_h, off_w, _, _ = phase_correlate_stack(stack, upsample_factor)
+    with profiling.span("api/step/registration", device=stack.device):
+        off_h, off_w, _, _ = phase_correlate_stack(stack, upsample_factor)
 
     # 2. Detection + fit over all (field, cycle) images at once.
     imgs = stack.reshape(F * C, H, W)
@@ -242,74 +248,77 @@ def experiment_step(stack, median_filter_size=5, c_std=2.0,
         res = detect_and_fit_batch(imgs, **detect_kw)
     K = max_candidates
 
-    # 3. Compact the kept fits into a [max_spots] bucket by R^2 (NaN R^2
-    # fits are kept by the gate and rank below every finite one; ties and
-    # empty slots in ascending candidate index, like lax.top_k).
-    keep_flat = res.keep.reshape(F * C, K)
-    spot_count = keep_flat.sum(dim=-1, dtype=torch.int32)
-    r2_rank = torch.where(torch.isnan(res.r2), -torch.inf, res.r2)
-    score = torch.where(keep_flat, torch.clamp_min(r2_rank, -1e30),
-                        -torch.inf)
-    top_score, top_idx = topk_lowest_index(score, max_spots)
-    spot_valid = top_score > -torch.inf
-    sh = torch.gather(res.center_h, 1, top_idx)
-    sw = torch.gather(res.center_w, 1, top_idx)
+    with profiling.span("api/step/photometry", device=stack.device):
+        # 3. Compact the kept fits into a [max_spots] bucket by R^2 (NaN R^2
+        # fits are kept by the gate and rank below every finite one; ties and
+        # empty slots in ascending candidate index, like lax.top_k).
+        keep_flat = res.keep.reshape(F * C, K)
+        spot_count = keep_flat.sum(dim=-1, dtype=torch.int32)
+        r2_rank = torch.where(torch.isnan(res.r2), -torch.inf, res.r2)
+        score = torch.where(keep_flat, torch.clamp_min(r2_rank, -1e30),
+                            -torch.inf)
+        top_score, top_idx = topk_lowest_index(score, max_spots)
+        spot_valid = top_score > -torch.inf
+        sh = torch.gather(res.center_h, 1, top_idx)
+        sw = torch.gather(res.center_w, 1, top_idx)
 
-    # Py2-rounded int16 centers and the tri-state validity with the
-    # Spot.__init__ box quirk (5x5 box on the rounded center, or the
-    # reference's fallback that admits an out-of-box spot unless h_0 is
-    # outside and w_0 inside, on the float centers).
-    rh_i = py2_round_device_i32(sh)
-    rw_i = py2_round_device_i32(sw)
-    r_box = 2
-    ok_plain = ((rh_i >= r_box) & (rh_i + r_box < H) &
-                (rw_i >= r_box) & (rw_i + r_box < W))
-    in_h = (sh >= r_box) & (sh < H - r_box)
-    in_w = (sw >= r_box) & (sw < W - r_box)
-    quirk_keep = ok_plain | ~(~in_h & in_w)
-    # 3 = wild: a kept fit whose center is non-finite or outside int16.
-    wild = (~(torch.isfinite(sh) & torch.isfinite(sw)) |
-            (torch.abs(rh_i) > 0x7FFF) | (torch.abs(rw_i) > 0x7FFF))
-    rh_i = torch.where(wild, 0, rh_i)
-    rw_i = torch.where(wild, 0, rw_i)
-    spot_state = spot_valid.to(torch.int8) * (1 + quirk_keep.to(torch.int8))
-    spot_state = torch.where(wild & spot_valid,
-                             torch.tensor(3, dtype=torch.int8,
-                                          device=stack.device), spot_state)
-    cand_dtype = torch.int16 if max_candidates <= 0x7FFF else torch.int32
+        # Py2-rounded int16 centers and the tri-state validity with the
+        # Spot.__init__ box quirk (5x5 box on the rounded center, or the
+        # reference's fallback that admits an out-of-box spot unless h_0 is
+        # outside and w_0 inside, on the float centers).
+        rh_i = py2_round_device_i32(sh)
+        rw_i = py2_round_device_i32(sw)
+        r_box = 2
+        ok_plain = ((rh_i >= r_box) & (rh_i + r_box < H) &
+                    (rw_i >= r_box) & (rw_i + r_box < W))
+        in_h = (sh >= r_box) & (sh < H - r_box)
+        in_w = (sw >= r_box) & (sw < W - r_box)
+        quirk_keep = ok_plain | ~(~in_h & in_w)
+        # 3 = wild: a kept fit whose center is non-finite or outside int16.
+        wild = (~(torch.isfinite(sh) & torch.isfinite(sw)) |
+                (torch.abs(rh_i) > 0x7FFF) | (torch.abs(rw_i) > 0x7FFF))
+        rh_i = torch.where(wild, 0, rh_i)
+        rw_i = torch.where(wild, 0, rw_i)
+        spot_state = (spot_valid.to(torch.int8) *
+                      (1 + quirk_keep.to(torch.int8)))
+        spot_state = torch.where(
+            wild & spot_valid,
+            torch.tensor(3, dtype=torch.int8, device=stack.device),
+            spot_state)
+        cand_dtype = torch.int16 if max_candidates <= 0x7FFF else torch.int32
 
-    # 4. Photometry at the kept spots.
-    if photometry_method in ("gaussian_volume", "sigmas"):
-        pk = torch.gather(res.params, 1,
-                          top_idx[..., None].expand(-1, -1, 7))
-        # The reference's left-to-right product order.
-        if photometry_method == "gaussian_volume":
-            phot = 1e6 * pk[..., 1] * pk[..., 4] * pk[..., 5]
+        # 4. Photometry at the kept spots.
+        if photometry_method in ("gaussian_volume", "sigmas"):
+            pk = torch.gather(res.params, 1,
+                              top_idx[..., None].expand(-1, -1, 7))
+            # The reference's left-to-right product order.
+            if photometry_method == "gaussian_volume":
+                phot = 1e6 * pk[..., 1] * pk[..., 4] * pk[..., 5]
+            else:
+                phot = 1e6 * pk[..., 4] * pk[..., 5]
+            phot_interior = torch.ones_like(spot_valid)
         else:
-            phot = 1e6 * pk[..., 4] * pk[..., 5]
-        phot_interior = torch.ones_like(spot_valid)
-    else:
-        r = {"mexican_hat": photometry_radius, "simple": 2,
-             "maximum": 5}[photometry_method]
-        # Static shapes force the clip: a spot within r of the border is
-        # measured at a shifted window, flagged by photometry_interior.
-        rch = torch.clamp(rh_i, r, H - r - 1)
-        rcw = torch.clamp(rw_i, r, W - r - 1)
-        phot_interior = (rch == rh_i) & (rcw == rw_i)
-        if photometry_method == "mexican_hat":
-            phot = phot_ops.mexican_hat_batch(imgs, rch, rcw,
-                                              brim_size=photometry_brim,
-                                              radius=photometry_radius)
-        elif photometry_method == "simple":
-            phot = phot_ops.simple_batch(imgs, rch, rcw, radius=2)
-        else:
-            phot = phot_ops.maximum_batch(imgs, rch, rcw, radius=5)
-    if photometry_min is not None:
-        # max(photometry_min, rp) of the reference: a NaN floors too.
-        phot = torch.where(phot > photometry_min, phot,
-                           torch.full_like(phot, photometry_min))
-    # Empty slots zeroed by a select (NaN * 0 would stay NaN).
-    phot = torch.where(spot_valid, phot, torch.zeros_like(phot))
+            r = {"mexican_hat": photometry_radius, "simple": 2,
+                 "maximum": 5}[photometry_method]
+            # Static shapes force the clip: a spot within r of the border is
+            # measured at a shifted window, flagged by photometry_interior.
+            rch = torch.clamp(rh_i, r, H - r - 1)
+            rcw = torch.clamp(rw_i, r, W - r - 1)
+            phot_interior = (rch == rh_i) & (rcw == rw_i)
+            if photometry_method == "mexican_hat":
+                phot = phot_ops.mexican_hat_batch(imgs, rch, rcw,
+                                                  brim_size=photometry_brim,
+                                                  radius=photometry_radius)
+            elif photometry_method == "simple":
+                phot = phot_ops.simple_batch(imgs, rch, rcw, radius=2)
+            else:
+                phot = phot_ops.maximum_batch(imgs, rch, rcw, radius=5)
+        if photometry_min is not None:
+            # max(photometry_min, rp) of the reference: a NaN floors too.
+            phot = torch.where(phot > photometry_min, phot,
+                               torch.full_like(phot, photometry_min))
+        # Empty slots zeroed by a select (NaN * 0 would stay NaN).
+        phot = torch.where(spot_valid, phot, torch.zeros_like(phot))
 
     def fc(x):
         return x.reshape(F, C, *x.shape[1:])

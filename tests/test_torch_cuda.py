@@ -921,3 +921,46 @@ def test_class_path_on_the_card_matches_cpu(dev, tmp_path, monkeypatch):
         np.testing.assert_allclose([float(x) for x in g[5:]],
                                    [float(x) for x in c[5:]],
                                    rtol=1e-4, atol=5e-2, err_msg=f"row {i}")
+
+
+def test_span_device_time_lies_within_the_host_window(dev):
+    """Traced spans on the card: each device span of a z-stack call and of
+    an experiment call reads a positive ``device_total`` (CUDA events,
+    resolved when ``timings()`` is read), and each call's device spans
+    together take no longer than the call's host wall; the host-clock
+    spans (the fetch waits, the pinned copy) read no device time."""
+    import time
+
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    from fluorosequencingimageanalysis_torch.utils.synth import make_zstack
+
+    pipe = Pipeline(PipelineConfig(detect=DetectConfig(max_candidates=1024)),
+                    device=dev, profile=True)
+    frames = make_zstack(16, 256, 256, n_spots=150, seed=1)
+    fields = np.clip(make_experiment_stack(8, 4, 256, 256,
+                                           spots_per_field=150, seed=2),
+                     0, 65535).astype(np.uint16)
+    calls = {
+        "zstack": (lambda: pipe.run_zstack(frames, lean=True, max_spots=512),
+                   ("api/zstack/background", "api/detect/candidates",
+                    "api/detect/consolidate")),
+        "experiment": (lambda: pipe.run_experiment(fields,
+                                                   max_candidates=1024),
+                       ("api/step/registration", "api/detect/candidates",
+                        "api/detect/consolidate", "api/step/photometry"))}
+    for name, (call, spans) in calls.items():
+        call()                      # warm-up: builds, plans, allocator
+        torch.cuda.synchronize()
+        profiling.reset_timings()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t = profiling.timings()
+        device = [t[s]["device_total"] for s in spans]
+        assert all(d > 0 for d in device), (name, device)
+        assert sum(device) <= wall, (name, device, wall)
+        assert t["api/fetch_wait"]["count"] >= 1
+        assert "device_total" not in t["api/fetch_wait"]
+        assert t["api/upload/pin"]["count"] == 1   # host frames: one copy
+    profiling.reset_timings()
