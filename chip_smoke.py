@@ -120,9 +120,14 @@ on planted tif files, and basic_timetrace_script on the movie's frames
 and the decoder matrix (one config-4 field uncompressed, PackBits,
 Deflate, LZW, with the predictor, big-endian, tiled and as 16-bit PNG:
 each read bit for bit, with its read time).
-``--phases`` names the groups to run, of headline, experiment, objects,
-zstack, timetrace, fluor, sim, mixtures, parallel and files (default:
-all, in that order);
+Group ``consolidate``: kernel F (the NMS) alone at the two paths' shapes,
+a sequencing group's 96 x 4,096 fits (8 fields x 12 cycles of 512x512,
+2,000 spots a field) and a z-stack group's 8 x 8,192 (config 2), each
+fitted by kernel B: its keep mask and rounds against the plain twin's on
+the card, both timed, the kernel beside its bound.
+``--phases`` names the groups to run, of headline, consolidate,
+experiment, objects, zstack, timetrace, fluor, sim, mixtures, parallel
+and files (default: all, in that order);
 the kernel summary then lists the kernels those groups drove.
 ``--profile`` adds the device's busy
 share and its largest operations over three headline steps and over one
@@ -155,11 +160,12 @@ F, C, HW = 8, 4, 512
 MAX_CANDIDATES, NUM_ITERS, UPSAMPLE = 2048, 40, 20
 B_CENTER, B_R2, B_RMSE_REL, B_MODEL = 1e-3, 1e-4, 1e-4, 1e-3
 SWEEP = [(48, 100), (33, 257), (70, 130), (96, 384)]
-KERNELS = ("candidate_map", "fit_quality", "v8_score", "mc_fit", "gmm_em")
+KERNELS = ("candidate_map", "fit_quality", "v8_score", "mc_fit", "gmm_em",
+           "consolidate")
 HOST_CORES = ("tracklink", "stepchain", "chisqfit", "trackcsv", "randsiggen")
 # Groups of phases, in the order they run; --phases names a subset.
-PHASES = ("headline", "experiment", "objects", "zstack", "timetrace", "fluor",
-          "sim", "mixtures", "parallel", "files")
+PHASES = ("headline", "consolidate", "experiment", "objects", "zstack",
+          "timetrace", "fluor", "sim", "mixtures", "parallel", "files")
 # Config 4 (bench.py's experiment workload): fields, cycles, candidate and
 # spot buckets, timed runs after one warm-up.
 EXP_F, EXP_C, EXP_K, EXP_S, EXP_REPS = 32, 8, 4096, 3072, 3
@@ -565,12 +571,14 @@ def experiment_phase(tmpl, dev, profile_host=False):
             torch.cuda.reset_peak_memory_stats()
             candidate_map_fused.launches = 0
             fit_quality.launches = 0
+            consolidate.launches = 0
             t = time.perf_counter()
             res = pipe.run_experiment(stack, **paths, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             launches = {"candidate_map": candidate_map_fused.launches,
-                        "fit_quality": fit_quality.launches}
+                        "fit_quality": fit_quality.launches,
+                        "consolidate": consolidate.launches}
             st = {k: v["total"] for k, v in profiling.timings().items()}
             runs.append({
                 "wall_s": wall, "launches": launches,
@@ -582,8 +590,9 @@ def experiment_phase(tmpl, dev, profile_host=False):
         n_groups = -(-EXP_F // GROUP_FIELDS)
         for r in runs:
             check(r["launches"] == {"candidate_map": n_groups,
-                                    "fit_quality": n_groups},
-                  f"each group's step launched both kernels once: "
+                                    "fit_quality": n_groups,
+                                    "consolidate": n_groups},
+                  f"each group's step launched kernels A, B and F once: "
                   f"{r['launches']}")
         rows = res["rows"]
         check(len(rows) > 0, "run_experiment returned rows")
@@ -746,6 +755,8 @@ def objects_phases(tmpl, dev, stack=None):
     from fluorosequencingimageanalysis_torch.api import Pipeline
     from fluorosequencingimageanalysis_torch.ops.candidates import (
         _threshold_and_extract_batch)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused, candidate_map_plain)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
@@ -774,6 +785,7 @@ def objects_phases(tmpl, dev, stack=None):
         torch.cuda.reset_peak_memory_stats()
         candidate_map_fused.launches = 0
         fit_quality.launches = 0
+        consolidate.launches = 0
         t = time.perf_counter()
         mfmc, stages = class_path(stack, os.path.join(tmp, "card.csv"),
                                   max_candidates=EXP_K,
@@ -781,10 +793,12 @@ def objects_phases(tmpl, dev, stack=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = {"candidate_map": candidate_map_fused.launches,
-                    "fit_quality": fit_quality.launches}
+                    "fit_quality": fit_quality.launches,
+                    "consolidate": consolidate.launches}
         peak = int(torch.cuda.max_memory_allocated())
-        check(launches == {"candidate_map": F, "fit_quality": F},
-              f"each field's detection launched both kernels once: "
+        check(launches == {"candidate_map": F, "fit_quality": F,
+                           "consolidate": F},
+              f"each field's detection launched kernels A, B and F once: "
               f"{launches}")
         header, rows = read_rows(os.path.join(tmp, "card.csv"))
         check(header == ["CHANNEL", "FIELD", "H", "W", "CATEGORY"] +
@@ -920,6 +934,8 @@ def objects_apps(dev):
 
     from fluorosequencingimageanalysis_torch.compat import (
         basic_experiment_script, basic_image_script)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
@@ -943,6 +959,7 @@ def objects_apps(dev):
         printed = io.StringIO()
         candidate_map_fused.launches = 0
         fit_quality.launches = 0
+        consolidate.launches = 0
         with contextlib.redirect_stdout(printed):
             t = time.perf_counter()
             processed = basic_image_script.main(
@@ -957,7 +974,8 @@ def objects_apps(dev):
             exp_s = time.perf_counter() - t
         torch.cuda.synchronize()
         launches = {"candidate_map": candidate_map_fused.launches,
-                    "fit_quality": fit_quality.launches}
+                    "fit_quality": fit_quality.launches,
+                    "consolidate": consolidate.launches}
         check(len(processed) == len(files), f"the image script processed "
               f"{len(processed)} of {len(files)} images")
         check(launches["candidate_map"] >= 1 and
@@ -998,12 +1016,14 @@ def objects_apps(dev):
 
 def in_process_cli(argv):
     """One subcommand through ``__main__.main`` in this process: (its JSON
-    line, seconds, launches of kernels A and B), the counts set to 0 just
-    before it and read just after."""
+    line, seconds, launches of kernels A, B and F), the counts set to 0
+    just before it and read just after."""
     import contextlib
     import io
 
     from fluorosequencingimageanalysis_torch.__main__ import main as cli
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
@@ -1013,13 +1033,15 @@ def in_process_cli(argv):
     torch.cuda.synchronize()
     candidate_map_fused.launches = 0
     fit_quality.launches = 0
+    consolidate.launches = 0
     t = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         rc = cli(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     launches = {"candidate_map": candidate_map_fused.launches,
-                "fit_quality": fit_quality.launches}
+                "fit_quality": fit_quality.launches,
+                "consolidate": consolidate.launches}
     check(rc == 0, f"the {argv[0]} subcommand returns 0 in process")
     return (json.loads(printed.getvalue().strip().splitlines()[-1]),
             seconds, launches)
@@ -1044,6 +1066,7 @@ def files_phases(tmpl, dev, stack4=None):
     from fluorosequencingimageanalysis_torch import _device
     from fluorosequencingimageanalysis_torch import __main__ as cli_module
     from fluorosequencingimageanalysis_torch.api import (GROUP_FIELDS,
+                                                         GROUP_FRAMES,
                                                          Pipeline)
     from fluorosequencingimageanalysis_torch.compat import (
         basic_timetrace_script)
@@ -1053,6 +1076,8 @@ def files_phases(tmpl, dev, stack4=None):
         find_peptides)
     from fluorosequencingimageanalysis_torch.ops.candidates import (
         _threshold_and_extract_batch)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused, candidate_map_plain)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
@@ -1160,9 +1185,10 @@ def files_phases(tmpl, dev, stack4=None):
             argv + ["--output-dir", os.path.join(tmp, "exp_in")])
         n_groups = -(-F_ // GROUP_FIELDS)
         check(exp_launches == {"candidate_map": n_groups,
-                               "fit_quality": n_groups},
-              f"run-experiment from files launched both kernels once a "
-              f"group: {exp_launches}")
+                               "fit_quality": n_groups,
+                               "consolidate": n_groups},
+              f"run-experiment from files launched kernels A, B and F once "
+              f"a group: {exp_launches}")
         sub, cli_s = run_cli(argv + ["--output-dir",
                                      os.path.join(tmp, "exp_cli")])
         for what, out in (("in process", summary), ("own process", sub)):
@@ -1229,7 +1255,8 @@ def files_phases(tmpl, dev, stack4=None):
               f"{len(want)})")
         check(summary["frames"] == Z_T and
               z_launches["candidate_map"] >= 1 and
-              z_launches["fit_quality"] >= 1,
+              z_launches["fit_quality"] >= 1 and
+              z_launches["consolidate"] == -(-Z_T // GROUP_FRAMES),
               f"zstack from a {Z_T}-page TIFF: {summary}, {z_launches}")
         launches["files_zstack"] = z_launches
         emit("files_zstack", frames=Z_T, file_form=f"one {Z_T}-page "
@@ -1346,6 +1373,7 @@ def files_phases(tmpl, dev, stack4=None):
             torch.cuda.synchronize()
             candidate_map_fused.launches = 0
             fit_quality.launches = 0
+            consolidate.launches = 0
             t = time.perf_counter()
             tte = basic_timetrace_script.main(
                 ["--output_directory", out, "--no_sanity_check_images",
@@ -1360,7 +1388,8 @@ def files_phases(tmpl, dev, stack4=None):
             return {"wall_s": wall, "rows": rows, "fits": fits,
                     "traces": len(tte.spot_traces),
                     "launches": {"candidate_map": candidate_map_fused.launches,
-                                 "fit_quality": fit_quality.launches}}
+                                 "fit_quality": fit_quality.launches,
+                                 "consolidate": consolidate.launches}}
 
         full = timetrace_script(str(dev), TT_T, "tts_full")
         check(full["traces"] > 0 and
@@ -1472,10 +1501,12 @@ def zstack_phases(tmpl, dev):
     def reset_launches():
         candidate_map_fused.launches = 0
         fit_quality.launches = 0
+        consolidate.launches = 0
 
     def read_launches():
         return {"candidate_map": candidate_map_fused.launches,
-                "fit_quality": fit_quality.launches}
+                "fit_quality": fit_quality.launches,
+                "consolidate": consolidate.launches}
 
     t = time.perf_counter()
     stack, pos = make_zstack(Z_T, return_truth=True)
@@ -1535,8 +1566,10 @@ def zstack_phases(tmpl, dev):
     n_groups = -(-T // g)
     for r in runs:
         check(r["launches"] == {"candidate_map": n_groups,
-                                "fit_quality": n_groups},
-              f"each group launched both kernels once: {r['launches']}")
+                                "fit_quality": n_groups,
+                                "consolidate": n_groups},
+              f"each group launched kernels A, B and F once: "
+              f"{r['launches']}")
     full = pipe.run_zstack(stack, max_candidates=Z_K)
     check(full["keep"].shape == (T, Z_K) and lean["keep"].shape == (T, Z_S)
           and full["cand_count"].dtype == np.int32,
@@ -1645,8 +1678,11 @@ def zstack_phases(tmpl, dev):
     torch.cuda.synchronize()
     exh_s = time.perf_counter() - t
     exh_launches = read_launches()
-    check(all(n > 0 for n in exh_launches.values()),
-          f"both kernels launched on the exhaustive path: {exh_launches}")
+    check(exh_launches["candidate_map"] > 0 and
+          exh_launches["fit_quality"] > 0 and
+          exh_launches["consolidate"] == 0,
+          f"kernels A and B launched on the exhaustive path, F not (its "
+          f"NMS is consolidate_host): {exh_launches}")
     over = full["cand_count"][:Z_EXH_T] > Z_K
     # The host NMS alone, on the fetched arrays of each frame.
     t = time.perf_counter()
@@ -1692,8 +1728,10 @@ def zstack_phases(tmpl, dev):
     fp_s = time.perf_counter() - t
     card_b = find_peptides_batch(fields)
     fp_launches = read_launches()
-    check(all(n > 0 for n in fp_launches.values()),
-          f"both kernels launched under find_peptides: {fp_launches}")
+    check(fp_launches["candidate_map"] > 0 and
+          fp_launches["fit_quality"] > 0 and fp_launches["consolidate"] == 0,
+          f"kernels A and B launched under find_peptides, F not (uncapped: "
+          f"consolidate_host): {fp_launches}")
     t = time.perf_counter()
     cpu = find_peptides(fields[0], device="cpu")
     fp_cpu_s = time.perf_counter() - t
@@ -1820,6 +1858,8 @@ def timetrace_phases(tmpl, dev):
     from fluorosequencingimageanalysis_torch.ops.background import widen
     from fluorosequencingimageanalysis_torch.ops.candidates import (
         extract_candidates_chunk)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused, candidate_map_plain)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
@@ -1962,12 +2002,14 @@ def timetrace_phases(tmpl, dev):
             torch.cuda.reset_peak_memory_stats()
             candidate_map_fused.launches = 0
             fit_quality.launches = 0
+            consolidate.launches = 0
             t = time.perf_counter()
             out = pipe.run_timetrace(movie, csv_path=csv_path, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             launches = {"candidate_map": candidate_map_fused.launches,
-                        "fit_quality": fit_quality.launches}
+                        "fit_quality": fit_quality.launches,
+                        "consolidate": consolidate.launches}
             st = {k: v["total"] for k, v in profiling.timings().items()}
             runs.append({
                 "wall_s": wall, "launches": launches,
@@ -1980,8 +2022,10 @@ def timetrace_phases(tmpl, dev):
     check(n > 100, f"run_timetrace found {n} traces")
     for r in runs:
         check(r["launches"]["candidate_map"] == 1 and
-              r["launches"]["fit_quality"] >= 1,
-              f"frame 0's detection launched both kernels: {r['launches']}")
+              r["launches"]["fit_quality"] >= 1 and
+              r["launches"]["consolidate"] == 0,
+              f"frame 0's uncapped detection launched both kernels, and "
+              f"kernel F not (consolidate_host): {r['launches']}")
         check(r["unnamed_share"] < TT_UNNAMED_SHARE,
               f"share of the wall no stage names: {r['unnamed_share']}")
     check(len(table) == 1 + n * T and
@@ -2572,6 +2616,8 @@ def sim_phases(tmpl, dev, ptxas):
     from fluorosequencingimageanalysis_torch.models import detect
     from fluorosequencingimageanalysis_torch.ops.candidates import (
         find_candidates, gather_patches)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused, candidate_map_plain)
     from fluorosequencingimageanalysis_torch.ops.fused_lognormal import (
@@ -2754,24 +2800,31 @@ def sim_phases(tmpl, dev, ptxas):
         torch.cuda.synchronize()
         candidate_map_fused.launches = 0
         mc_fit.launches = 0
+        consolidate.launches = 0
         t = time.perf_counter()
         psfs = detect.find_peptides(frame, max_candidates=MC_K, **mc_kw)
         torch.cuda.synchronize()
         mc_runs.append({"wall_s": time.perf_counter() - t, "launches": {
             "candidate_map": candidate_map_fused.launches,
-            "mc_fit": mc_fit.launches}, "psfs": len(psfs)})
-    check(all(r["launches"] == {"candidate_map": 1, "mc_fit": 1}
-              for r in mc_runs), f"one launch each of A and D: {mc_runs}")
+            "mc_fit": mc_fit.launches,
+            "consolidate": consolidate.launches}, "psfs": len(psfs)})
+    check(all(r["launches"] == {"candidate_map": 1, "mc_fit": 1,
+                                "consolidate": 1}
+              for r in mc_runs), f"one launch each of A, D and F (the "
+                                 f"window gate): {mc_runs}")
     candidate_map_fused.launches = 0
     mc_fit.launches = 0
+    consolidate.launches = 0
     t = time.perf_counter()
     psfs_default = detect.find_peptides(frame, **mc_kw)  # the 4096 cap
     torch.cuda.synchronize()
     default_s = time.perf_counter() - t
     default_launches = {"candidate_map": candidate_map_fused.launches,
-                        "mc_fit": mc_fit.launches}
-    check(default_launches == {"candidate_map": 1, "mc_fit": 1},
-          f"the capped call launches A and D once: {default_launches}")
+                        "mc_fit": mc_fit.launches,
+                        "consolidate": consolidate.launches}
+    check(default_launches == {"candidate_map": 1, "mc_fit": 1,
+                               "consolidate": 1},
+          f"the capped call launches A, D and F once: {default_launches}")
     # Recovery (reported, not gated): isolated planted spots with a kept
     # Monte-Carlo fit whose model peak (center + 0.5, the p + h - 2.5
     # convention) lies within MC_WITHIN_PX.
@@ -3998,6 +4051,8 @@ def parallel_phases(dev, stack4=None, calibrated=None, gmm_phot=None):
     from fluorosequencingimageanalysis_torch.api import Pipeline
     from fluorosequencingimageanalysis_torch.config import (
         DetectConfig, PhotometryConfig, PipelineConfig, RegistrationConfig)
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
@@ -4010,10 +4065,12 @@ def parallel_phases(dev, stack4=None, calibrated=None, gmm_phot=None):
 
     def counts():
         return {"candidate_map": candidate_map_fused.launches,
-                "fit_quality": fit_quality.launches}
+                "fit_quality": fit_quality.launches,
+                "consolidate": consolidate.launches}
 
     def zero():
         candidate_map_fused.launches = fit_quality.launches = 0
+        consolidate.launches = 0
 
     cfg = PipelineConfig(
         detect=DetectConfig(max_candidates=MAX_CANDIDATES,
@@ -4049,16 +4106,17 @@ def parallel_phases(dev, stack4=None, calibrated=None, gmm_phot=None):
          one_device_s=one_s, sharded_s=sharded_s,
          launches=launches["parallel_sharded_step"],
          keys_differing=differ,
-         note="both shards on the one card, run one after the other (each "
-              "shard's consolidate reads the host every round); a shard's "
+         note="both shards on the one card, enqueued one after the other "
+              "on the calling thread; a shard's "
               "fields are the same work as in the one-device step, so the "
               "outputs are equal bit for bit")
     check(not differ, f"the sharded step equals experiment_step bit for "
                       f"bit; largest differences: {differ} (each field's "
                       f"work is its own: a difference is a fault)")
     check(launches["parallel_sharded_step"] == {
-        "candidate_map": PAR_SHARDS, "fit_quality": PAR_SHARDS},
-        f"one launch each of A and B a shard: {launches}")
+        "candidate_map": PAR_SHARDS, "fit_quality": PAR_SHARDS,
+        "consolidate": PAR_SHARDS},
+        f"one launch each of A, B and F a shard: {launches}")
     del x, one, sharded
 
     if stack4 is None:
@@ -4342,6 +4400,8 @@ def multihost_child(spec):
     group, runs multihost.run_experiment on its share of the fields on the
     device (the parent's) and writes its CSV; prints its launches and wall
     as JSON."""
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
     from fluorosequencingimageanalysis_torch.ops.fused_candidates import (
         candidate_map_fused)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
@@ -4366,9 +4426,78 @@ def multihost_child(spec):
     wall = time.perf_counter() - t
     torch.distributed.destroy_process_group()
     launches = {"candidate_map": candidate_map_fused.launches,
-                "fit_quality": fit_quality.launches}
+                "fit_quality": fit_quality.launches,
+                "consolidate": consolidate.launches}
     print(json.dumps({"rank": rank, "wall_s": wall, "rows": len(res["rows"]),
                       "launches": launches}), flush=True)
+
+
+def consolidate_phase(tmpl, dev, ptxas):
+    """Kernel F against its plain twin at the sequencing and z-stack
+    groups' shapes: keep masks bit for bit, the rounds (the launch's
+    largest against the twin's over groups of images) equal, both timed;
+    emits one "kernel_f" line a shape and returns the launches and the
+    numbers at the z-stack's shape."""
+    from fluorosequencingimageanalysis_torch.ops import consolidate as cons
+    from fluorosequencingimageanalysis_torch.ops.background import (
+        subtract_background_stack)
+    from fluorosequencingimageanalysis_torch.ops.candidates import (
+        find_candidates_batch)
+    from fluorosequencingimageanalysis_torch.ops.fused_fit import (
+        fit_quality)
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    from fluorosequencingimageanalysis_torch.utils.synth import (
+        make_experiment_stack, make_zstack)
+
+    seq = make_experiment_stack(8, 12, HW, HW, spots_per_field=2000)
+    shapes = {
+        "seqrun_group": (torch.from_numpy(seq.reshape(96, HW, HW)).to(dev),
+                         EXP_K),
+        "zstack_group": (subtract_background_stack(make_zstack(8),
+                                                   device=dev), Z_K)}
+    del seq
+    out, launches = {}, 0
+    for path, (images, k) in shapes.items():
+        with torch.no_grad():
+            hs, ws, valid, _ = find_candidates_batch(
+                images, correlation_matrix=tmpl, max_candidates=k)
+            fq = fit_quality(images, hs, ws, 60, 1)
+        args = (fq[1], fq[2], fq[4], valid & ~(fq[4] < 0.7), 4.0)
+        B, n = hs.shape
+        group = max(1, cons._MAX_PAIRS // (n * n))
+        parts = [cons._consolidate_group(*[a[lo:lo + group]
+                                           for a in args[:4]], 4.0)
+                 for lo in range(0, B, group)]
+        want = torch.cat([m for m, _ in parts])
+        want_rounds = max(r for _, r in parts)
+        profiling.reset_counters()
+        before = cons.consolidate.launches
+        with profiling.tracing():
+            got = cons.consolidate(*args)
+        counts = profiling.counters()
+        profiling.reset_counters()
+        launches += cons.consolidate.launches - before
+        differ = int((got != want).sum())
+        check(differ == 0 and cons.consolidate.launches == before + 1 and
+              counts["detect/consolidate_rounds"] == want_rounds,
+              f"kernel F vs twin at {(B, n)}: {differ} keep flags differ, "
+              f"rounds {counts} against {want_rounds}")
+        ms = time_ms(lambda: cons.consolidate(*args), 20)
+        plain = time_ms(lambda: cons.consolidate_plain(*args), 3)
+        # Each fit's center, R^2 and valid flag read, its flag written.
+        f_bound, f_by = bound(B * n * (3 * 4 + 1 + 1) + B * 4, 0)
+        med = statistics.median(ms)
+        out[path] = {"shape": [B, n], "max_abs_err": float(differ),
+                     "kept": int(got.sum()), "valid": int(args[3].sum()),
+                     "rounds": want_rounds, "ms": med,
+                     "plain_ms": statistics.median(plain),
+                     "bound_ms": f_bound, "bound_by": f_by,
+                     "share_of_bound": f_bound / med, "ms_runs": ms,
+                     "plain_ms_runs": plain}
+        emit("kernel_f", path=path, **out[path], **ptxas["consolidate"])
+        del images, hs, ws, valid, fq, args, want, got
+    return {"launches": {"kernel_f_alone": {"consolidate": launches}},
+            "kernels": {"consolidate": out["zstack_group"]}}
 
 
 def headline_phases(tmpl, dev, ptxas, profile=False):
@@ -4448,11 +4577,14 @@ def headline_phases(tmpl, dev, ptxas, profile=False):
     pipe = Pipeline(cfg, device="cuda")
     candidate_map_fused.launches = 0
     fit_quality.launches = 0
+    consolidate.launches = 0
     out = pipe.run_stack(stack)
     launches = {"candidate_map": candidate_map_fused.launches,
-                "fit_quality": fit_quality.launches}
-    check(all(n > 0 for n in launches.values()),
-          f"both kernels launched in the slice: {launches}")
+                "fit_quality": fit_quality.launches,
+                "consolidate": consolidate.launches}
+    check(launches["candidate_map"] > 0 and launches["fit_quality"] > 0
+          and launches["consolidate"] == 1,
+          f"kernels A and B launched in the slice, F once: {launches}")
     S = out["spot_h"].shape[-1]
     dims = {"F": F, "C": C, "K": MAX_CANDIDATES, "S": S, "7": 7}
     check(set(out) == set(SCHEMA), f"output keys {sorted(out)}")
@@ -4682,6 +4814,8 @@ def main():
     if "headline" in phases:
         done["headline"] = headline_phases(tmpl, dev, ptxas,
                                            profile=args.profile)
+    if "consolidate" in phases:  # kernel F alone at the paths' shapes
+        done["consolidate"] = consolidate_phase(tmpl, dev, ptxas)
     if "experiment" in phases:  # config 4
         done["experiment"] = experiment_phase(tmpl, dev,
                                               profile_host=args.profile)
@@ -4717,8 +4851,12 @@ def kernel_summary(done, ptxas):
     """One entry per kernel that a group of this run drove. The top-level
     numbers of kernels A and B are the headline step's (or, where that
     group did not run, the first path's that did); each other path's
-    launches and numbers follow under its own name. No single PyTorch call
-    computes any of the five functions: ``library_ms`` is null (kernel
+    launches and numbers follow under its own name. Kernel F's launches
+    are those of the headline step, run_experiment and run_zstack (the
+    first that ran is the top-level count), its numbers the consolidate
+    group's at the z-stack group's shape; its launches alone there are
+    ``launches_kernel_f_alone``. No single PyTorch call
+    computes any of the six functions: ``library_ms`` is null (kernel
     C's nearest composition of library calls is timed beside it as
     ``matmul_composition_ms``)."""
     meta = {
@@ -4737,6 +4875,9 @@ def kernel_summary(done, ptxas):
         "gmm_em": (
             "fluorosequencingimageanalysis_torch/csrc/gmm_em.cu",
             "fluorosequencingimageanalysis_tpu/ops/gmm_batch.py:54"),
+        "consolidate": (
+            "fluorosequencingimageanalysis_torch/csrc/consolidate.cu",
+            "fluorosequencingimageanalysis_tpu/ops/consolidate.py:56"),
     }
     # {kernel: [(path, launches, numbers), ...]} in the order of the run.
     paths = {name: [] for name in meta}
@@ -4772,6 +4913,24 @@ def kernel_summary(done, ptxas):
             paths[name].append(("mc_detect",
                                 g["launches"]["mc_detect"][name],
                                 g["kernels"][name]["mc_detect"]))
+    if "consolidate" in done:
+        # Kernel F's launches are the main paths' runs; its numbers are
+        # the consolidate group's, which times it alone.
+        alone = done["consolidate"]["kernels"]["consolidate"]
+        if "headline" in done:
+            paths["consolidate"].append((
+                "headline", done["headline"]["launches"]["consolidate"],
+                alone))
+        if "experiment" in done:
+            paths["consolidate"].append((
+                "experiment", done["experiment"]["launches"]["consolidate"],
+                alone))
+        if "zstack" in done:
+            paths["consolidate"].append((
+                "zstack", done["zstack"]["launches"]["zstack"]["consolidate"],
+                alone))
+        if not paths["consolidate"]:
+            paths["consolidate"].append(("kernel_f_alone", None, alone))
     if "mixtures" in done:
         g = done["mixtures"]
         paths["gmm_em"].append((
@@ -4788,14 +4947,17 @@ def kernel_summary(done, ptxas):
                                         "bound_ms", "bound_by")},
                  "library_ms": None, "share_of_bound": top["share_of_bound"],
                  **ptxas[name]}
-        if name in ("v8_score", "mc_fit", "gmm_em"):
+        if name in ("v8_score", "mc_fit", "gmm_em", "consolidate"):
             entry.update({k: v for k, v in top.items() if k not in entry})
         if "experiment" in done and name in ("candidate_map", "fit_quality"):
             entry["launches_experiment"] = \
                 done["experiment"]["launches"][name]
             entry["experiment"] = done["experiment"]["kernels"][name]
+        if name == "consolidate":
+            for path, n, _ in paths[name]:
+                entry["launches_" + path] = n
         for group in ("objects", "zstack", "timetrace", "fluor", "sim",
-                      "mixtures", "parallel", "files"):
+                      "mixtures", "parallel", "files", "consolidate"):
             if group not in done:
                 continue
             for path, n in done[group]["launches"].items():

@@ -38,11 +38,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # its own, as the plain twin's one-op-per-launch arithmetic does, so the
 # LM kernel matches its twin bit for bit (see ops/lm.py::_row_sum).
 # mc_fit: the same, for the Monte-Carlo fit's model and pixel sums
-# (ops/mc_fit.py::mc_fit_plain).
+# (ops/mc_fit.py::mc_fit_plain). consolidate: the same, so that its
+# squared distances round as the plain twin's (ops/consolidate.py).
 # candidate_map keeps FMA contraction: its 25-tap sum cancels large terms,
 # and the FMA form is the one that agrees with the twin's convolution.
 KERNEL_FLAGS = {"fit_quality": ("-fmad=false",),
-                "mc_fit": ("-fmad=false",)}
+                "mc_fit": ("-fmad=false",),
+                "consolidate": ("-fmad=false",)}
 # Host C++: no -ffast-math, and -ffp-contract=off so that a*b + c rounds
 # twice on every host architecture (the tracker's distances are the
 # reference's plain sqrt(dh*dh + dw*dw); the step-fit cores promise the

@@ -53,8 +53,7 @@ GROUP_FIELDS = 8
 
 # Frames per upload group of run_zstack: a group's upload runs beside the
 # previous group's background + detect + fit. 8 frames of 512x512 uint16
-# are 4 MB; at an 8192-candidate bucket a group is two rounds of the
-# consolidation's pair budget (ops/consolidate._MAX_PAIRS).
+# are 4 MB and one launch of the NMS kernel (ops/consolidate.py).
 GROUP_FRAMES = 8
 
 # The step outputs run_experiment fetches: the compact spot bucket (int16

@@ -12,10 +12,10 @@ model devices where the images divide. Fields are independent and the
 step has no collective, so the only data motion is each shard's upload
 and the gather of its results onto the mesh's first device.
 
-Each shard's step reads the host once per round of its non-max
-suppression (``ops/consolidate.py``), so the shards run one after the
-other on the calling thread; every shard's results stay on its device
-until all have run. Nothing here is timed on more than one card.
+The shards' steps are enqueued one after the other on the calling
+thread (a step reads nothing back: the non-max suppression runs its whole
+fixpoint on the card, ``ops/consolidate.py``); every shard's results stay
+on its device until all have run. Nothing here is timed on more than one card.
 
 ``data_devices`` and ``shares`` are what the other sharded ops share
 (``stack_background``, ``lc_track``, ``stepfit_batched``,

@@ -24,7 +24,11 @@ While it is on, a span
   as ``device_total``; ``reset_timings()`` drops them.
 
 ``stage`` is always on (it does not read the switch), and so are the
-counters: ``bump`` takes a lock and never reads the device.
+counters: ``bump`` takes a lock and never reads the device. A count that
+lies on the card (a kernel's per-image fixpoint rounds) goes to
+``bump_max``, which, like a span, records only while tracing is on: it
+keeps the device tensor pending, and ``counters()`` waits for its device
+and adds its largest entry; ``reset_counters()`` drops it.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ _counts: dict = defaultdict(int)
 _enabled = False     # the switch, read without the lock
 _holds = 0           # open ``tracing()`` blocks, on any thread
 _pending: list = []  # (name, start event, end event) not yet resolved
+_pending_max: list = []  # (counter name, tensor) not yet added
 _OFF = contextlib.nullcontext()
 
 
@@ -166,14 +171,33 @@ def bump(name: str, n: int = 1) -> None:
         _counts[name] += n
 
 
-def counters() -> dict:
+def bump_max(name: str, values: torch.Tensor) -> None:
+    """Count the largest entry of ``values`` under ``name`` when
+    ``counters()`` is next read, without reading the tensor now; nothing
+    while tracing is off."""
+    if not _enabled:
+        return
     with _lock:
+        _pending_max.append((name, values))
+
+
+def counters() -> dict:
+    """Snapshot of {counter: count}. Waits for the devices of the tensors
+    that ``bump_max`` left pending and adds their largest entries."""
+    with _lock:
+        for name, values in _pending_max:
+            if values.device.type == "cuda":
+                torch.cuda.synchronize(values.device)
+            values = values.cpu()
+            _counts[name] += int(values.max()) if values.numel() else 0
+        _pending_max.clear()
         return dict(_counts)
 
 
 def reset_counters() -> None:
     with _lock:
         _counts.clear()
+        _pending_max.clear()
 
 
 def report() -> str:

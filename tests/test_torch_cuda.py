@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import nms_cases
 from fluorosequencingimageanalysis_torch import api
 from fluorosequencingimageanalysis_torch.api import Pipeline
 from fluorosequencingimageanalysis_torch.config import (DetectConfig,
@@ -964,3 +965,83 @@ def test_span_device_time_lies_within_the_host_window(dev):
         assert "device_total" not in t["api/fetch_wait"]
         assert t["api/upload/pin"]["count"] == 1   # host frames: one copy
     profiling.reset_timings()
+
+
+def _kernel_f_against_twin(dev, ch, cw, r2, valid, radius, cand=None):
+    """Kernel F and the plain twin on the card: the keep masks and the
+    rounds (the launch's largest, the twin's over one group of all the
+    images) must be equal; the kernel is one launch, and none (no count)
+    where there is no fit slot. Returns the mask."""
+    from fluorosequencingimageanalysis_torch.ops import consolidate as cons
+    from fluorosequencingimageanalysis_torch.utils import profiling
+
+    args = [torch.as_tensor(a).to(dev) for a in (ch, cw, r2, valid)]
+    extra = [torch.as_tensor(a).to(dev) for a in (cand or ())]
+    B, n = args[0].shape
+    group = max(1, cons._MAX_PAIRS // max(n * n, 1))
+    parts = [cons._consolidate_group(*[a[lo:lo + group] for a in args],
+                                     radius,
+                                     *[a[lo:lo + group] for a in extra])
+             for lo in range(0, B, group)]
+    want = torch.cat([k for k, _ in parts])
+    want_rounds = max(r for _, r in parts)
+    profiling.reset_counters()
+    before = cons.consolidate.launches
+    with profiling.tracing():
+        got = cons.consolidate(*args, radius, *extra)
+    c = profiling.counters()
+    profiling.reset_counters()
+    launched = int(B * n > 0)
+    assert cons.consolidate.launches == before + launched
+    assert c.get("detect/consolidate_launches", 0) == launched
+    assert torch.equal(got, want)
+    assert c.get("detect/consolidate_rounds", 0) == want_rounds
+    return got
+
+
+@pytest.mark.parametrize("name", nms_cases.NAMES)
+def test_kernel_f_matches_twin_on_every_case(dev, name):
+    """Chains, NaN R^2 and ties, d2 == radius^2 exactly, centers outside
+    the image and non-finite, every fit in one cell, no valid fit, N not a
+    multiple of the block, the Monte-Carlo window gate, radii whose squares
+    underflow or overflow, images with no fit slot (tests/nms_cases.py)."""
+    ch, cw, r2, valid, radius, cand = nms_cases.case(name)
+    _kernel_f_against_twin(dev, ch, cw, r2, valid, radius, cand)
+
+
+def test_kernel_f_matches_twin_at_the_paths_shapes(dev):
+    """A sequencing group's 96 x 4,096 candidates (8 fields x 12 cycles of
+    the dense cell's 2,000 spots a field; every image fills the bucket)
+    and a z-stack group's 8 x 8,192 (config 2, ~6,800 candidates a frame),
+    each fitted by kernel B and gated at R^2 0.7 as detect_and_fit_batch
+    does: the keep masks bit for bit and the rounds equal."""
+    from fluorosequencingimageanalysis_torch.ops.background import (
+        subtract_background_stack)
+    from fluorosequencingimageanalysis_torch.utils.synth import make_zstack
+    seq = torch.from_numpy(make_experiment_stack(
+        8, 12, 512, 512, spots_per_field=2000, seed=3).reshape(96, 512, 512))
+    for images, k in ((seq.to(dev), 4096),
+                      (subtract_background_stack(make_zstack(8), device=dev),
+                       8192)):
+        hs, ws, valid, _ = find_candidates_batch(images, max_candidates=k)
+        fq = fit_quality(images, hs, ws, 60, 1)
+        passed = valid & ~(fq[4] < 0.7)
+        keep = _kernel_f_against_twin(dev, fq[1], fq[2], fq[4], passed, 4.0)
+        assert int(keep.sum()) > images.shape[0] * 300
+
+
+def test_kernel_f_rejects_what_it_does_not_take(dev):
+    from fluorosequencingimageanalysis_torch.ops.consolidate import (
+        consolidate)
+    x = torch.zeros((2, 64), device=dev)
+    v = torch.ones((2, 64), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        consolidate(x.double(), x.double(), x.double(), v)
+    with pytest.raises(TypeError, match="bool valid"):
+        consolidate(x, x, x, v.to(torch.uint8))
+    with pytest.raises(ValueError, match="one \\(..., N\\) shape"):
+        consolidate(x, x[:, :32], x, v)
+    with pytest.raises(ValueError, match="share a device"):
+        consolidate(x, x.cpu(), x, v)
+    with pytest.raises(ValueError, match="both cand_h and cand_w"):
+        consolidate(x, x, x, v, 4.0, x)

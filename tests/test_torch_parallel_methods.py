@@ -152,8 +152,8 @@ def test_data_devices_and_row_shares(monkeypatch):
 def _launchers():
     """Each kernel's launcher with CPU arguments of its shapes."""
     from fluorosequencingimageanalysis_torch.ops import (
-        fused_candidates, fused_fit, fused_gmm_em, fused_lognormal,
-        fused_mc_fit)
+        consolidate, fused_candidates, fused_fit, fused_gmm_em,
+        fused_lognormal, fused_mc_fit)
     i32, u8 = torch.int32, torch.uint8
     z = torch.zeros
     return {
@@ -169,12 +169,15 @@ def _launchers():
         "gmm_em_launch": lambda: fused_gmm_em._launch(
             z(2, 50), z(2, dtype=i32), z(2, 3, 4), z(2, 3, 4), z(2, 3, 4),
             z(2, 3, 4, dtype=torch.bool), 5, 1e-6),
+        "consolidate_launch": lambda: consolidate._launch(
+            (z(2, 9), z(2, 9), z(2, 9), z(2, 9, dtype=torch.bool)), 4.0),
     }
 
 
 @pytest.mark.parametrize("name", ["candidate_map_launch",
                                   "fit_quality_launch", "v8_score_launch",
-                                  "mc_fit_launch", "gmm_em_launch"])
+                                  "mc_fit_launch", "gmm_em_launch",
+                                  "consolidate_launch"])
 def test_kernel_launches_with_its_device_current(name, monkeypatch):
     """Every kernel launches with its tensors' device current, so that a
     piece on a second card launches there: the library is a stand-in that
@@ -211,11 +214,12 @@ def test_kernel_launches_with_its_device_current(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
     from fluorosequencingimageanalysis_torch.ops import (
-        fused_candidates, fused_fit, fused_gmm_em, fused_lognormal,
-        fused_mc_fit)
+        consolidate, fused_candidates, fused_fit, fused_gmm_em,
+        fused_lognormal, fused_mc_fit)
     for wrapper in (fused_candidates.candidate_map_fused,
                     fused_fit.fit_quality, fused_lognormal.v8_score_fused,
-                    fused_mc_fit.mc_fit, fused_gmm_em.gmm_em):
+                    fused_mc_fit.mc_fit, fused_gmm_em.gmm_em,
+                    consolidate.consolidate):
         # The stand-in's launches leave the counts as they were.
         monkeypatch.setattr(wrapper, "launches", wrapper.launches)
     _launchers()[name]()

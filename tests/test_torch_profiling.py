@@ -226,6 +226,30 @@ def test_spans_from_threads_land_in_one_registry(fake_cuda):
     assert profiling.counters() == {"stress/events": total}
 
 
+def test_bump_max_waits_for_counters_and_only_while_tracing():
+    """A device count (kernel F's per-image rounds) is kept pending, not
+    read, and its largest entry added when ``counters()`` is read; while
+    tracing is off nothing is kept; ``reset_counters()`` drops what is
+    pending."""
+    rounds = torch.tensor([3, 7, 5], dtype=torch.int32)
+    profiling.bump_max("t/rounds", rounds)
+    assert profiling._pending_max == []
+    assert profiling.counters() == {}
+    with profiling.tracing():
+        profiling.bump_max("t/rounds", rounds)
+        profiling.bump_max("t/rounds", torch.tensor([2], dtype=torch.int32))
+        profiling.bump_max("t/empty", torch.zeros(0, dtype=torch.int32))
+        profiling.bump("t/rounds", 1)
+        assert len(profiling._pending_max) == 3
+    assert profiling.counters() == {"t/rounds": 7 + 2 + 1, "t/empty": 0}
+    assert profiling.counters() == {"t/rounds": 10, "t/empty": 0}
+    with profiling.tracing():
+        profiling.bump_max("t/rounds", rounds)
+    profiling.reset_counters()
+    assert profiling._pending_max == []
+    assert profiling.counters() == {}
+
+
 def _chains(lengths, n):
     """Images of fits in a chain each: fit i at (10, 10 + 3 i), R^2
     falling along it, so that each rival pair is decided one fixpoint
