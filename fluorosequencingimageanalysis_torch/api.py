@@ -1017,7 +1017,11 @@ class Pipeline:
         With ``profile``, host-clock stages: "api/run_timetrace/upload",
         ".../detect", ".../track+photometry" (window metrics; ".../track"
         and ".../photometry" for the others), ".../stepfit",
-        ".../assemble" (the result objects) and ".../csv".
+        ".../assemble" (the result objects) and ".../csv"; the spans
+        "api/timetrace/track", "api/stepfit/ck_masks" (device time on a
+        CUDA device) and "api/stepfit/postpass"; and, once a call, the
+        counters "timetrace/frames" and "timetrace/traces" (the frames and
+        the tracks started on frame 0), bumped while tracing is on only.
 
         Returns a dict: traces {h, w, present, rec_h, rec_w},
         photometries (N, T), step_fits, step_fit_intermediates,
@@ -1063,6 +1067,9 @@ class Pipeline:
                 max_candidates=(max_candidates if max_candidates is not None
                                 else det.single_field_cap),
                 num_iters=det.num_iters, device=None)
+        if profiling.enabled():
+            profiling.bump("timetrace/frames", T)
+            profiling.bump("timetrace/traces", len(h0))
         if len(h0) == 0:
             if csv_path is not None:
                 # The class path still writes a header-only CSV for an

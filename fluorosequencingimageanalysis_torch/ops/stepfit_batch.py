@@ -291,7 +291,9 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
     With ``utils.profiling`` stages are recorded under "stepfit/upload",
     "stepfit/ck+masks" (host clock of the enqueueing), "stepfit/fetch"
     (the wait for the device and the copies), "stepfit/postpass" and
-    "stepfit/assemble".
+    "stepfit/assemble". While tracing is on, each dispatch's enqueueing
+    is also the span "api/stepfit/ck_masks" (device time on a CUDA
+    device) and the native pass the host span "api/stepfit/postpass".
     """
     from ..native import stepchain
     from ..parallel.mesh import shares
@@ -320,7 +322,8 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
             profiling.bump("ledger/uploads")
             profiling.bump("ledger/upload_bytes",
                            piece.numel() * piece.element_size())
-        with profiling.stage("stepfit/ck+masks"), torch.no_grad():
+        with profiling.stage("stepfit/ck+masks"), torch.no_grad(), \
+                profiling.span("api/stepfit/ck_masks", device=dev):
             profiling.bump("ledger/step_dispatches")
             if chung_kennedy > 0:
                 # The reference re-filters the mirrored input each round
@@ -346,7 +349,8 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
         ck = (np.concatenate([c[0] for c in cols]) if chung_kennedy > 0
               else mirrored)
 
-    with profiling.stage("stepfit/postpass"):
+    with profiling.stage("stepfit/postpass"), \
+            profiling.span("api/stepfit/postpass"):
         (rf_n, rf_s, rf_e, rf_h, tf_n, tf_s, tf_e, tf_h) = \
             stepchain.stepfit_postpass(mirrored, masks, p_threshold,
                                        mirror_start, n_threads=n_threads)

@@ -248,6 +248,10 @@ def lc_track_and_photometry(movie_dev, h0, w0, method, search_radius=3,
     of lc_track plus the (N, T) float64 photometry matrix of
     timetrace_photometries (None frames 0, exact host edge fallbacks,
     photometry_min applied).
+
+    While tracing is on (``utils.profiling``), the enqueueing of the walk,
+    the window gathers and the result copies is the span
+    ``api/timetrace/track``, with device time on a CUDA device.
     """
     T, H, W = movie_dev.shape
     win_r = _window_radius(method, photometry_radius)
@@ -257,7 +261,7 @@ def lc_track_and_photometry(movie_dev, h0, w0, method, search_radius=3,
     reduce = phot_ops.patch_reduction(method, win_r,
                                       brim_size=photometry_brim,
                                       top=photometry_top)
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("api/timetrace/track", device=dev):
         movie_f = widen(movie_dev)
         rec_h_d, rec_w_d, present_d = _lc_track_scan(
             movie_f, t0h, t0w, r0h, r0w, search_radius=search_radius,
