@@ -980,8 +980,10 @@ class Pipeline:
         device detector's psfs with their centers; LC tracking per
         flexlibrary.py:1172-1317; Trace.photometries zeros for None
         frames; the mirror -> Chung-Kennedy -> sliding-t -> refit ->
-        t-merge chain per flexlibrary.py:3642-3713); CSV rows equal the
-        classes' TimetraceExperiment.save_experiment_as_csv.
+        t-merge chain per flexlibrary.py:3642-3713); the CSV is the
+        classes' TimetraceExperiment.save_experiment_as_csv byte for byte,
+        written from the step fitter's arrays by the native writer
+        (native/timetrace_csv.py).
 
         Arguments:
             movie: [T, H, W] array or tensor, one continuously-filmed
@@ -1021,7 +1023,9 @@ class Pipeline:
         "api/timetrace/track", "api/stepfit/ck_masks" (device time on a
         CUDA device) and "api/stepfit/postpass"; and, once a call, the
         counters "timetrace/frames" and "timetrace/traces" (the frames and
-        the tracks started on frame 0), bumped while tracing is on only.
+        the tracks started on frame 0) and, with ``csv_path``,
+        "timetrace/csv_rows" (the rows the native writer wrote), bumped
+        while tracing is on only.
 
         Returns a dict: traces {h, w, present, rec_h, rec_w},
         photometries (N, T), step_fits, step_fit_intermediates,
@@ -1029,8 +1033,7 @@ class Pipeline:
         """
         from .models.detect import find_peptide_centers
         from .ops.background import widen
-        from .ops.stepfit_batch import stepfit_batched
-        from .pipeline.experiment import TimetraceExperiment
+        from .ops.stepfit_batch import stepfit_arrays, stepfit_lists
         from .pipeline.fast_timetrace import (lc_track,
                                               lc_track_and_photometry,
                                               timetrace_photometries)
@@ -1077,13 +1080,9 @@ class Pipeline:
                 # intermediate columns are keyed off the first trace's
                 # dict (flexlibrary.py:3544): with no trace there are none.
                 with self._stage("api/run_timetrace/csv"):
-                    TimetraceExperiment(
-                        frames=[None] * T, spot_traces=[], step_fits={},
-                        step_fit_intermediates={}
-                    ).save_experiment_as_csv(
-                        csv_path, include_step_fits=include_step_fits,
-                        include_intermediates=None,
-                        photometry_method=phot.method)
+                    self._timetrace_csv(
+                        csv_path, h0, w0, stepfit_arrays(np.zeros((0, T))),
+                        include_step_fits, None)
             return {"traces": {"h": [], "w": [], "present": None,
                                "rec_h": None, "rec_w": None},
                     "photometries": np.zeros((0, T)),
@@ -1121,16 +1120,16 @@ class Pipeline:
                     aperture_radius=phot.aperture_radius,
                     box_size=phot.box_size, filter_size=phot.filter_size)
         with self._stage("api/run_timetrace/stepfit"):
-            results = stepfit_batched(photometries,
-                                      mirror_start=mirror_start,
-                                      chung_kennedy=chung_kennedy,
-                                      p_threshold=p_threshold,
-                                      window_radius=sf.window_radius,
-                                      device=self._ops_device)
+            fit_arrays = stepfit_arrays(photometries,
+                                        mirror_start=mirror_start,
+                                        chung_kennedy=chung_kennedy,
+                                        p_threshold=p_threshold,
+                                        window_radius=sf.window_radius,
+                                        device=self._ops_device)
+            results = stepfit_lists(fit_arrays)
         with self._stage("api/run_timetrace/assemble"):
             step_fits = {}
             intermediates = {}
-            spot_traces = []
             for (hh, ww), (phots, ck, plateaus, t_filtered) in zip(
                     zip(h0, w0), results):
                 hw = (hh, ww)
@@ -1144,23 +1143,30 @@ class Pipeline:
                     "plateaus": PlateauTrace(plateaus, hh, ww),
                     "t_filtered_plateaus": PlateauTrace(t_filtered, hh, ww),
                 }
-                # ``phots`` is the row of ``photometries`` as floats.
-                spot_traces.append(PhotometryTrace(phots, hh, ww))
         if csv_path is not None:
             with self._stage("api/run_timetrace/csv"):
-                TimetraceExperiment(
-                    frames=[None] * T, spot_traces=spot_traces,
-                    step_fits=step_fits,
-                    step_fit_intermediates=intermediates
-                ).save_experiment_as_csv(
-                    csv_path, include_step_fits=include_step_fits,
-                    include_intermediates=include_intermediates,
-                    photometry_method=phot.method)
+                self._timetrace_csv(csv_path, h0, w0, fit_arrays,
+                                    include_step_fits, include_intermediates)
         return {"traces": {"h": h0, "w": w0, "present": present,
                            "rec_h": rec_h, "rec_w": rec_w},
                 "photometries": photometries, "step_fits": step_fits,
                 "step_fit_intermediates": intermediates,
-                "trace_count": len(spot_traces), "csv_path": csv_path}
+                "trace_count": len(results), "csv_path": csv_path}
+
+    @staticmethod
+    def _timetrace_csv(csv_path, h0, w0, fit_arrays, include_step_fits,
+                       include_intermediates):
+        """run_timetrace's CSV by the native writer: the rows
+        TimetraceExperiment.save_experiment_as_csv writes for the same
+        fits (native/timetrace_csv.py). While tracing is on, the counter
+        "timetrace/csv_rows" counts the rows it wrote."""
+        from .native import timetrace_csv
+        rows = timetrace_csv.write(
+            csv_path, h0, w0, fit_arrays,
+            include_step_fits=include_step_fits,
+            include_intermediates=include_intermediates)
+        if profiling.enabled():
+            profiling.bump("timetrace/csv_rows", rows - 1)
 
     @_traced
     def run_timetraces(self, movies, csv_paths=None, prefetch=None,

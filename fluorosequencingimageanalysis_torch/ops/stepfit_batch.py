@@ -24,6 +24,8 @@ threaded over the traces.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -247,35 +249,52 @@ def _postpass_python(mirrored, ck, masks, p_threshold, mirror_start):
     return out
 
 
-def _unmirror_lists(n, s, e, h, mirror_start):
-    """Per-row [(start, stop, height), ...] after unmirroring (shift by
+def _unmirror(n, s, e, h, mirror_start):
+    """stepfitting.unmirror_plateaus over every row at once: shift by
     -mirror_start, drop plateaus entirely inside the mirror, clamp the
-    boundary start to 0: stepfitting.unmirror_plateaus), built as one flat
-    zip over all kept plateaus. Only the first n[i] entries of a row are
-    real; rows are cut out of the flat list by cumulative counts."""
+    boundary start to 0. Takes and returns (n, start, stop, height) arrays
+    whose row i holds its plateaus in its first n[i] entries."""
     w = max(int(n.max()), 1) if n.size else 1
     s, e, h = s[:, :w], e[:, :w], h[:, :w]
-    kmask = np.arange(w)[None, :] < n[:, None]
-    keep = kmask & ((e - mirror_start) >= 0)
-    rows, cols = np.nonzero(keep)  # row-major: rows stay grouped
-    flat = list(zip(
-        np.maximum(s[rows, cols] - mirror_start, 0).tolist(),
-        (e[rows, cols] - mirror_start).tolist(),
-        h[rows, cols].tolist()))
-    bounds = np.zeros(keep.shape[0] + 1, np.int64)
-    np.cumsum(keep.sum(axis=1), out=bounds[1:])
-    return [flat[bounds[i]:bounds[i + 1]] for i in range(keep.shape[0])]
+    keep = (np.arange(w)[None, :] < n[:, None]) & ((e - mirror_start) >= 0)
+    # Each row's kept plateaus first, in their order.
+    order = np.argsort(~keep, axis=1, kind="stable")
+    s, e, h = (np.take_along_axis(a, order, axis=1) for a in (s, e, h))
+    return (keep.sum(axis=1).astype(np.int32),
+            np.maximum(s - mirror_start, 0), e - mirror_start, h)
 
 
-def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
-                    p_threshold=0.01, window_radius=6, chunk=None,
-                    device="cuda", n_threads=None):
+def _plateau_lists(n, s, e, h):
+    """Per-row [(start, stop, height), ...] of (n, start, stop, height)
+    arrays, built as one flat zip over all plateaus and cut into rows by
+    cumulative counts."""
+    keep = np.arange(s.shape[1])[None, :] < n[:, None]
+    flat = list(zip(s[keep].tolist(), e[keep].tolist(), h[keep].tolist()))
+    bounds = np.zeros(len(n) + 1, np.int64)
+    np.cumsum(n, out=bounds[1:])
+    return [flat[bounds[i]:bounds[i + 1]] for i in range(len(n))]
+
+
+class StepfitArrays(NamedTuple):
+    """:func:`stepfit_arrays`' result for N traces of T frames: the
+    photometries and the CK traces past the mirror, (N, T) float64, and
+    the refit and t-filtered plateaus unmirrored, each as (n, start, stop,
+    height) with row i's plateaus in ``start[i, :n[i]]`` etc."""
+    phot: np.ndarray
+    ck: np.ndarray
+    refit: tuple
+    t_filtered: tuple
+
+
+def stepfit_arrays(photometries, mirror_start=0, chung_kennedy=0,
+                   p_threshold=0.01, window_radius=6, chunk=None,
+                   device="cuda", n_threads=None):
     """Batched Trace.stepfit_photometries chain (flexlibrary.py:1380-1469)
-    over an (N, T) array of trace photometries.
-
-    Returns a list of N tuples ``(photometries, un_ck, un_plateaus, un_t)``
-    matching the host chain: mirror -> CK(2,4,8,16) -> sliding-t(radius<6)
-    -> refit on raw -> drop_sort t-test merge -> unmirror.
+    over an (N, T) array of trace photometries, as arrays: a
+    :class:`StepfitArrays` of the host chain's results, mirror ->
+    CK(2,4,8,16) -> sliding-t(radius<6) -> refit on raw -> drop_sort
+    t-test merge -> unmirror. :func:`stepfit_batched` gives them as the
+    host chain's lists.
 
     The mirrored traces upload as float64 in chunks of ``chunk`` rows
     (None = ``STEPFIT_CHUNK``; from pinned memory on a CUDA device), the CK
@@ -291,7 +310,8 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
     With ``utils.profiling`` stages are recorded under "stepfit/upload",
     "stepfit/ck+masks" (host clock of the enqueueing), "stepfit/fetch"
     (the wait for the device and the copies), "stepfit/postpass" and
-    "stepfit/assemble". While tracing is on, each dispatch's enqueueing
+    "stepfit/unmirror"; :func:`stepfit_batched` adds "stepfit/assemble".
+    While tracing is on, each dispatch's enqueueing
     is also the span "api/stepfit/ck_masks" (device time on a CUDA
     device) and the native pass the host span "api/stepfit/postpass".
     """
@@ -303,7 +323,9 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
     phot = np.asarray(photometries, dtype=np.float64)
     N, _ = phot.shape
     if N == 0:
-        return []
+        empty = (np.zeros(0, np.int32), np.zeros((0, 1), np.int32),
+                 np.zeros((0, 1), np.int32), np.zeros((0, 1)))
+        return StepfitArrays(phot, phot, empty, empty)
     mirrored = np.ascontiguousarray(np.concatenate(
         [phot[:, :mirror_start][:, ::-1], phot], axis=1))
     host = torch.from_numpy(mirrored)
@@ -354,16 +376,35 @@ def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
         (rf_n, rf_s, rf_e, rf_h, tf_n, tf_s, tf_e, tf_h) = \
             stepchain.stepfit_postpass(mirrored, masks, p_threshold,
                                        mirror_start, n_threads=n_threads)
-    with profiling.stage("stepfit/assemble"):
-        # Bulk conversion and one unmirroring pass in numpy: per-element
-        # numpy scalar access in a 4096-trace loop costs more than the
-        # native pass itself.
-        phot_rows = phot.tolist()
-        rf_lists = _unmirror_lists(rf_n, rf_s, rf_e, rf_h, mirror_start)
-        tf_lists = _unmirror_lists(tf_n, tf_s, tf_e, tf_h, mirror_start)
-        ck_un = ck[:, mirror_start:]
-        # list(ck_un[i]) is unmirror_photometries(list(ck[i])): a list of
-        # numpy scalars, the type the host chain produces.
-        return [(tuple(phot_rows[i]), list(ck_un[i]), rf_lists[i],
-                 tf_lists[i]) for i in range(N)]
+    with profiling.stage("stepfit/unmirror"):
+        return StepfitArrays(
+            phot, ck[:, mirror_start:],
+            _unmirror(rf_n, rf_s, rf_e, rf_h, mirror_start),
+            _unmirror(tf_n, tf_s, tf_e, tf_h, mirror_start))
 
+
+def stepfit_lists(arrays):
+    """A :class:`StepfitArrays` as the host chain's per-trace results: N
+    tuples ``(photometries, un_ck, un_plateaus, un_t)``."""
+    with profiling.stage("stepfit/assemble"):
+        # Bulk conversion: per-element numpy scalar access in a 4096-trace
+        # loop costs more than the native pass itself.
+        phot_rows = arrays.phot.tolist()
+        rf_lists = _plateau_lists(*arrays.refit)
+        tf_lists = _plateau_lists(*arrays.t_filtered)
+        # list(ck[i]) is unmirror_photometries(list(ck[i])): a list of
+        # numpy scalars, the type the host chain produces.
+        return [(tuple(phot_rows[i]), list(arrays.ck[i]), rf_lists[i],
+                 tf_lists[i]) for i in range(len(phot_rows))]
+
+
+def stepfit_batched(photometries, mirror_start=0, chung_kennedy=0,
+                    p_threshold=0.01, window_radius=6, chunk=None,
+                    device="cuda", n_threads=None):
+    """:func:`stepfit_arrays` as a list of N tuples ``(photometries,
+    un_ck, un_plateaus, un_t)`` matching the host chain (the arguments are
+    :func:`stepfit_arrays`')."""
+    return stepfit_lists(stepfit_arrays(
+        photometries, mirror_start=mirror_start, chung_kennedy=chung_kennedy,
+        p_threshold=p_threshold, window_radius=window_radius, chunk=chunk,
+        device=device, n_threads=n_threads))

@@ -56,6 +56,7 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.inference.background",
     "fluorosequencingimageanalysis_torch.notebook",
     "fluorosequencingimageanalysis_torch.native.trackcsv",
+    "fluorosequencingimageanalysis_torch.native.timetrace_csv",
     "fluorosequencingimageanalysis_torch.ops.lognormal",
     "fluorosequencingimageanalysis_torch.ops.fused_lognormal",
     "fluorosequencingimageanalysis_torch.pipeline.experiment",

@@ -1,6 +1,7 @@
 """The movie path's tracing: the spans ``api/timetrace/track``,
-``api/stepfit/ck_masks`` and ``api/stepfit/postpass`` and the counters
-``timetrace/frames`` and ``timetrace/traces`` that ``run_timetrace``
+``api/stepfit/ck_masks``, ``api/stepfit/postpass`` and
+``api/run_timetrace/csv`` and the counters ``timetrace/frames``,
+``timetrace/traces`` and ``timetrace/csv_rows`` that ``run_timetrace``
 records under ``Pipeline(profile=True)``, and nothing of them without.
 
 On the CPU the spans hold host time only; the test marked ``cuda`` reads
@@ -21,7 +22,7 @@ torch.set_num_threads(1)  # tier-1 runs several xdist workers per host
 
 DEVICE_SPANS = ("api/timetrace/track", "api/stepfit/ck_masks")
 HOST_SPANS = ("api/stepfit/postpass",)
-COUNTERS = ("timetrace/frames", "timetrace/traces")
+COUNTERS = ("timetrace/frames", "timetrace/traces", "timetrace/csv_rows")
 CALL = dict(max_candidates=None, photometry_min=None, mirror_start=0,
             chung_kennedy=1, p_threshold=0.01)
 
@@ -54,6 +55,37 @@ def test_run_timetrace_records_its_spans_and_counters(movie, tmp_path):
     assert c["timetrace/frames"] == 2 * movie.shape[0]
     n = outs[0]["trace_count"]
     assert n > 0 and c["timetrace/traces"] == 2 * n
+
+
+def test_the_csv_is_a_span_and_counts_its_rows(movie, tmp_path):
+    """``api/run_timetrace/csv`` spans the native writer, and the counter
+    ``timetrace/csv_rows`` counts the rows it wrote: N x T a call with a
+    CSV, nothing without one, nothing from the class path's writer."""
+    from fluorosequencingimageanalysis_torch.pipeline.experiment import (
+        TimetraceExperiment)
+
+    pipe = Pipeline(device="cpu", profile=True)
+    outs = [pipe.run_timetrace(movie, csv_path=str(tmp_path / "a.csv"),
+                               **CALL),
+            pipe.run_timetrace(movie, **CALL)]
+    t = profiling.timings()
+    assert t["api/run_timetrace/csv"]["count"] == 1
+    assert t["api/run_timetrace/csv"]["total"] > 0
+    n = outs[0]["trace_count"]
+    assert n > 0
+    assert profiling.counters()["timetrace/csv_rows"] == n * movie.shape[0]
+    inter = outs[0]["step_fit_intermediates"]
+    with profiling.tracing():
+        TimetraceExperiment(
+            frames=[None] * movie.shape[0],
+            spot_traces=[v["photometries"] for v in inter.values()],
+            step_fits=outs[0]["step_fits"], step_fit_intermediates=inter
+        ).save_experiment_as_csv(str(tmp_path / "b.csv"),
+                                 include_step_fits=True,
+                                 include_intermediates=True)
+    assert profiling.counters()["timetrace/csv_rows"] == n * movie.shape[0]
+    assert (tmp_path / "b.csv").read_bytes() == \
+        (tmp_path / "a.csv").read_bytes()
 
 
 def test_nothing_is_recorded_without_profile(movie, tmp_path):

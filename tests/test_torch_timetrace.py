@@ -474,6 +474,58 @@ def test_run_timetrace_empty_movie_writes_a_header_only_csv(tmp_path):
         blank, max_candidates=64)["csv_path"] is None
 
 
+def _class_path_csv(path, out, T, **kw):
+    """The class method's CSV of run_timetrace's returned results."""
+    inter = out["step_fit_intermediates"]
+    keys = list(zip(out["traces"]["h"], out["traces"]["w"]))
+    TimetraceExperiment(
+        frames=[None] * T,
+        spot_traces=[inter[k]["photometries"] for k in keys],
+        step_fits=out["step_fits"], step_fit_intermediates=inter
+    ).save_experiment_as_csv(str(path), **kw)
+    return path.read_bytes()
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("mexican_hat", dict(chung_kennedy=1, mirror_start=10)),
+    ("mexican_hat", dict(chung_kennedy=0, mirror_start=0,
+                         include_intermediates=None)),
+    ("sextractor", dict(chung_kennedy=1, mirror_start=3,
+                        include_step_fits=False)),
+])
+def test_run_timetrace_csv_is_the_class_methods_byte_for_byte(
+        method, kw, tmp_path):
+    """The native writer's file on both track branches (the fused
+    mexican hat and the two-step sextractor) equals the class method's
+    file of the same returned results, exactly."""
+    movie = make_movie(seed=4, T=24, n_spots=12)
+    cfg, _ = _configs(method=method)
+    out = Pipeline(cfg, device="cpu").run_timetrace(
+        movie, csv_path=str(tmp_path / "port.csv"), max_candidates=256,
+        **kw)
+    assert out["trace_count"] > 3
+    flags = {k: kw.get(k, True)
+             for k in ("include_step_fits", "include_intermediates")}
+    want = _class_path_csv(tmp_path / "class.csv", out, movie.shape[0],
+                           photometry_method=method, **flags)
+    got = (tmp_path / "port.csv").read_bytes()
+    assert got == want
+    assert got.count(b"\r\n") == out["trace_count"] * movie.shape[0] + 1
+
+
+def test_run_timetraces_writes_the_class_methods_files(tmp_path):
+    movies = [make_movie(seed=s, T=12, n_spots=6) for s in (1, 2)]
+    pipe = Pipeline(device="cpu")
+    paths = [tmp_path / f"m{i}.csv" for i in range(2)]
+    outs = pipe.run_timetraces(movies, csv_paths=[str(p) for p in paths],
+                               max_candidates=256, chung_kennedy=1)
+    for i, out in enumerate(outs):
+        assert out["trace_count"] > 2
+        assert paths[i].read_bytes() == _class_path_csv(
+            tmp_path / f"class{i}.csv", out, 12, include_step_fits=True,
+            include_intermediates=True)
+
+
 def test_run_timetraces_equals_per_movie_calls(tmp_path):
     movies = [make_movie(seed=s, T=10, n_spots=6) for s in (0, 3)]
     movies[1] = np.clip(movies[1], 0, 65535).astype(np.uint16)
