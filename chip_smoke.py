@@ -4057,8 +4057,9 @@ def parallel_phases(dev, stack4=None, calibrated=None, gmm_phot=None):
         candidate_map_fused)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
         fit_quality)
+    from fluorosequencingimageanalysis_torch._device import make_mesh
     from fluorosequencingimageanalysis_torch.parallel.mesh import (
-        experiment_step, experiment_step_sharded, make_mesh)
+        experiment_step, experiment_step_sharded)
     from fluorosequencingimageanalysis_torch.utils.convert import step_kwargs
     from fluorosequencingimageanalysis_torch.utils.synth import (
         make_experiment_stack, make_stack)
@@ -4407,7 +4408,7 @@ def multihost_child(spec):
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
         fit_quality)
     from fluorosequencingimageanalysis_torch.parallel import multihost
-    from fluorosequencingimageanalysis_torch.parallel.mesh import make_mesh
+    from fluorosequencingimageanalysis_torch._device import make_mesh
 
     rank, nproc, port, device, tmp = spec.split(",", 4)
     rank, nproc = int(rank), int(nproc)

@@ -52,6 +52,8 @@ import sys
 
 import numpy as np
 
+from ._device import data_devices
+
 
 def _load_stack(files):
     """files -> ([F, C, H, W] array, frame_count) via dir=cycle/file=field."""
@@ -345,7 +347,6 @@ def _cmd_stepfit(args):
 
         from . import stepfitting as sflib
         from .ops.stepfit_batch import chung_kennedy_batch
-        from .parallel.mesh import data_devices
 
         work = phot
         # The smoothing passes run on one device, the first of a list, as

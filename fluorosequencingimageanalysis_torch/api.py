@@ -6,7 +6,7 @@ Counterpart of fluorosequencingimageanalysis_tpu/api.py ``Pipeline``'s
 ``fluor_counts``, ``fluor_counts_calibrated``, ``per_cycle_gmm`` and
 ``simulate_signals``, with its content-hash artifact store
 (utils/checkpoint.py). ``Pipeline(device=[...])`` (a device list, or a
-``parallel.mesh.Mesh``) runs every method the JAX Pipeline runs on its mesh
+``_device.Mesh``) runs every method the JAX Pipeline runs on its mesh
 data-parallel over the data devices, as the JAX Pipeline does:
 ``run_stack`` and ``run_experiment`` (fields, padded to the data axis),
 ``run_zstack`` (frames), ``run_timetrace`` and ``run_timetraces``
@@ -36,7 +36,8 @@ import warnings
 import numpy as np
 import torch
 
-from ._device import resolve_device
+from ._device import Mesh, data_devices, make_mesh, resolve_device
+from ._transfer import Uploader, count_fetched, fetch, wait
 from .config import PipelineConfig
 from .utils import profiling
 
@@ -98,71 +99,6 @@ def _normalize_stack(stack):
     return torch.from_numpy(np.ascontiguousarray(stack))
 
 
-class _GroupUploader:
-    """Pieces ``(lo, hi, device)`` of a stack's first axis, each on its
-    device.
-
-    A piece bound for a CUDA device uploads from one pinned copy of the
-    host stack (made at the first such piece, in the host-clock span
-    ``api/upload/pin``) on a side copy stream of its device, behind an
-    event that ``take`` makes that device's current stream wait on. A
-    piece of a stack that already lies on the piece's device is sliced,
-    not copied, unless ``from_host`` (the caller's frames came from the
-    host, so every piece counts as an upload); a stack on another device
-    is copied across."""
-
-    def __init__(self, stack, pieces, from_host=False):
-        self.stack, self.pieces, self.from_host = stack, pieces, from_host
-        self.parts = [None] * len(pieces)
-        self.events = [None] * len(pieces)
-        self.host = None
-        self.streams = {}
-
-    def upload(self, i):
-        """Enqueue piece i's upload (once)."""
-        if self.parts[i] is not None:
-            return
-        lo, hi, dev = self.pieces[i]
-        if not self.from_host and self.stack.device == dev:
-            self.parts[i] = self.stack[lo:hi]
-            return
-        if dev.type == "cuda" and self.stack.device.type == "cpu":
-            if self.host is None:
-                with profiling.span("api/upload/pin"):
-                    self.host = (self.stack if self.stack.is_pinned()
-                                 else self.stack.pin_memory())
-            part = self.host[lo:hi]
-            if dev not in self.streams:
-                self.streams[dev] = torch.cuda.Stream(dev)
-            stream = self.streams[dev]
-            buf = torch.empty(part.shape, dtype=part.dtype, device=dev)
-            # The buffer may reuse memory the main stream still reads.
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                buf.copy_(part, non_blocking=True)
-                self.events[i] = torch.cuda.Event()
-                self.events[i].record(stream)
-            buf.record_stream(stream)
-            self.parts[i] = buf
-        else:
-            part = self.stack[lo:hi]
-            self.parts[i] = part.to(dev)
-        profiling.bump("ledger/uploads")
-        profiling.bump("ledger/upload_bytes",
-                       part.numel() * part.element_size())
-
-    def take(self, i):
-        """Piece i on its device, once that device's current stream has
-        been told to wait for its upload; the uploader drops its
-        reference."""
-        self.upload(i)
-        if self.events[i] is not None:
-            torch.cuda.current_stream(self.pieces[i][2]).wait_event(
-                self.events[i])
-        part, self.parts[i] = self.parts[i], None
-        return part
-
-
 class Pipeline:
     """Config-driven detection, z-stack, experiment, movie and step-fit
     paths on one device or sharded over several, optionally cached in an
@@ -176,7 +112,7 @@ class Pipeline:
                 JAX package's PipelineConfig works too.
             device: where the step runs ("cuda", "cuda:1", "cpu", ...). A
                 CUDA device must exist; CPU runs the kernels' plain twins.
-                A list of devices, or a ``parallel.mesh.Mesh``, shards
+                A list of devices, or a ``_device.Mesh``, shards
                 every method the JAX Pipeline runs on its mesh over the
                 data devices (see the module docstring); the first is
                 ``self.device``, where the work that is not sharded runs
@@ -188,8 +124,6 @@ class Pipeline:
                 device time into ``utils.profiling``'s registry and show
                 in a ``torch.profiler`` timeline.
         """
-        from .parallel.mesh import Mesh, make_mesh
-
         self.config = config if config is not None else PipelineConfig()
         self.mesh = None
         if isinstance(device, Mesh):
@@ -289,11 +223,11 @@ class Pipeline:
 
         def compute():
             with self._stage("api/run_stack"):
-                x = stack.to(self.device)
+                x = Uploader(stack, [(0, stack.shape[0], self.device)]).take(0)
                 with torch.no_grad():
                     out = self._step(x, max_spots=max_spots, **kw)
-                return {k: v.cpu().numpy() for k, v in out.items()
-                        if keys is None or k in keys}
+                names = [k for k in out if keys is None or k in keys]
+                return dict(zip(names, wait(fetch([out[k] for k in names]))))
 
         if self.store is not None:
             key, _ = self._run_stack_key(
@@ -340,7 +274,6 @@ class Pipeline:
                                photometry_min=None)
         keys = tuple(keys)
         dev = self.device
-        on_card = dev.type == "cuda"
         F = stack.shape[0]
         lows = list(range(0, F, g))
         key = None
@@ -352,37 +285,21 @@ class Pipeline:
                 yield self.store.load(key), None, 0
                 return
         with self._stage("api/run_stack"):
-            uploader = _GroupUploader(stack, [(lo, lo + g, dev)
-                                              for lo in lows])
+            uploader = Uploader(stack, [(lo, lo + g, dev) for lo in lows])
 
         def step(i):
             grp = uploader.take(i)
             with torch.no_grad():
                 out = self._step(grp, max_spots=max_spots, **kw)
             profiling.bump("ledger/step_dispatches")
-            event = None
-            if on_card:
-                fetched = {}
-                for k in keys:
-                    fetched[k] = torch.empty(out[k].shape, dtype=out[k].dtype,
-                                             pin_memory=True)
-                    fetched[k].copy_(out[k], non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-            else:
-                fetched = {k: out[k].cpu() for k in keys}
-            return fetched, event, grp, lows[i]
+            return fetch([out[k] for k in keys]), grp, lows[i]
 
         def resolve(item):
-            fetched, event, grp, lo = item
+            pending, grp, lo = item
             with profiling.span("api/fetch_wait"):
-                if event is not None:
-                    event.synchronize()
-            out = {k: v.numpy() for k, v in fetched.items()}
-            profiling.bump("ledger/result_fetches", len(out))
-            profiling.bump("ledger/fetch_bytes",
-                           sum(int(v.nbytes) for v in out.values()))
-            return out, grp, lo
+                arrays = wait(pending)
+            count_fetched(arrays)
+            return dict(zip(keys, arrays)), grp, lo
 
         n_ahead = 2 if dispatch == "window" else len(lows)
         with self._stage("api/run_stack"):
@@ -457,14 +374,12 @@ class Pipeline:
         frames) with ``psfs``. The artifact store caches the array outputs
         only (``psfs=True`` always computes).
         """
-        from .models.detect import (SpotFindResult, _fetch_async,
-                                    detect_and_fit_batch,
+        from .models.detect import (SpotFindResult, detect_and_fit_batch,
                                     detect_and_fit_exhaustive,
                                     pack_spot_buckets, psfs_dicts_from_batch,
                                     unpack_spot_buckets,
                                     warn_candidate_overflow)
         from .ops.background import stack_background, widen
-        from .parallel.mesh import data_devices
 
         # A tensor the caller placed on the device runs whole; host frames
         # (arrays, and tensors elsewhere) go up in groups.
@@ -520,21 +435,17 @@ class Pipeline:
                     else torch.int32)
 
         def collect(item):
-            names, host, event = item
+            names, pending = item
             with profiling.span("api/fetch_wait"):
-                if event is not None:
-                    event.synchronize()
-            out = {k: v.numpy() for k, v in zip(names, host)}
-            profiling.bump("ledger/result_fetches", len(out))
-            profiling.bump("ledger/fetch_bytes",
-                           sum(int(v.nbytes) for v in out.values()))
-            return out
+                arrays = wait(pending)
+            count_fetched(arrays)
+            return dict(zip(names, arrays))
 
         def dispatch_piece(i):
             """Piece i's background and subtraction, then (unless
             exhaustive) detect + fit on its device; starts the copies of
-            its outputs to the host. Returns ((names, host tensors,
-            event), subtracted frames or None)."""
+            its outputs to the host. Returns ((names, pending fetch),
+            subtracted frames or None)."""
             grp = uploader.take(i)
             profiling.bump("ledger/step_dispatches")
             with torch.no_grad():
@@ -550,22 +461,22 @@ class Pipeline:
                     extra["subtracted"] = subtracted
                 if exhaustive:
                     return (list(extra),
-                            *_fetch_async(list(extra.values()))), subtracted
+                            fetch(list(extra.values()))), subtracted
                 res = detect_and_fit_batch(subtracted, max_candidates=mc,
                                            **detect_kw)
                 if lean:
-                    fetch = dict(zip(
+                    outs = dict(zip(
                         ("_lean_f32", "_lean_ints", "_lean_flags",
                          "_lean_spot_count", "_lean_cand_count"),
                         pack_spot_buckets(res, n_spots_bucket,
                                           coord_dtype=coord_dt)))
                 else:
-                    fetch = dict(res._asdict())
-                fetch.update(extra)
-            return (list(fetch), *_fetch_async(list(fetch.values()))), None
+                    outs = dict(res._asdict())
+                outs.update(extra)
+            return (list(outs), fetch(list(outs.values()))), None
 
         with self._stage("api/run_zstack"):
-            uploader = _GroupUploader(stack, pieces, from_host=not resident)
+            uploader = Uploader(stack, pieces, from_host=not resident)
             if exhaustive:
                 # One-ahead window: round k+1's uploads and backgrounds are
                 # enqueued before the chunked path (which waits for the
@@ -1056,8 +967,7 @@ class Pipeline:
         with self._stage("api/run_timetrace/upload"), torch.no_grad():
             # One upload of the raw frames (half the bytes of float32 for
             # uint16), widened on the device.
-            movie_dev = widen(_GroupUploader(
-                movie, [(0, T, self.device)]).take(0))
+            movie_dev = widen(Uploader(movie, [(0, T, self.device)]).take(0))
         with self._stage("api/run_timetrace/detect"):
             det = self.config.detect
             # The arrays path: the psfs-dict key semantics without the
@@ -1200,7 +1110,7 @@ class Pipeline:
         def start_upload(m):
             if m.ndim != 3:
                 raise ValueError("movie must be [frames, H, W]")
-            up = _GroupUploader(m, [(0, m.shape[0], self.device)])
+            up = Uploader(m, [(0, m.shape[0], self.device)])
             up.upload(0)
             return up
 

@@ -15,7 +15,7 @@ its fits through ``_cluster_fit_2``'s private ``_kmeans`` keyword, so the
 scoring stays the copy. ``gmm_photometries_batched`` and
 ``per_cycle_gmm_batched`` fit through ops/gmm_batch.py (kernel E) on
 ``device``, "cuda" unless the caller passes "cpu"; a device list or a
-``parallel.mesh.Mesh`` splits the models over its data devices, as the JAX
+``_device.Mesh`` splits the models over its data devices, as the JAX
 functions' mesh does.
 """
 

@@ -6,7 +6,7 @@ copied function for function with the ``mesh`` argument turned into
 C(n_cycles + max_fluors, n_cycles) candidate sequences in Python
 (MCsimlib.py:5387-5558). Here all traces score all sequences in batched
 device calls (ops/lognormal.py); the host code only shapes dicts and
-decodes winners. A device list or a ``parallel.mesh.Mesh`` in ``device``
+decodes winners. A device list or a ``_device.Mesh`` in ``device``
 splits the traces over its data devices, as the JAX functions' mesh does.
 
 ``_intensities_to_signal_lognormal_v8`` is kept as an exact single-trace

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .._device import default_device, resolve_device
+from .._transfer import fetch, wait
 from ..ops.candidates import (DEFAULT_CORRELATION_MATRIX,
                               candidate_maps_batch, extract_candidates_chunk,
                               find_candidates, find_candidates_batch,
@@ -174,23 +175,6 @@ def _as_images(images, device, dtype=np.float32):
     return torch.from_numpy(host).to(dev)
 
 
-def _fetch_async(tensors):
-    """Start the device->host copies of ``tensors`` (all on one device)
-    into pinned memory; returns (host tensors, event or None). On the CPU
-    nothing is copied. The event is recorded on the current stream of the
-    tensors' device, where the copies run."""
-    if not tensors or tensors[0].device.type != "cuda":
-        return list(tensors), None
-    host = []
-    for t in tensors:
-        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        h.copy_(t, non_blocking=True)
-        host.append(h)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(tensors[0].device))
-    return host, event
-
-
 def detect_and_fit_exhaustive(images, median_filter_size=5,
                               correlation_matrix=None, c_std=2.0,
                               r_2_threshold=0.7, consolidation_radius=4.0,
@@ -244,13 +228,9 @@ def detect_and_fit_exhaustive(images, median_filter_size=5,
                     cms, excluded, chunk, float(c_std))
             params, ch, cw, rm, r2, sn = _fit_quality_core(
                 imgs, hs, ws, num_iters, theta_starts)
-            fetched.append(_fetch_async(
+            fetched.append(fetch(
                 [hs, ws, params, ch, cw, rm, r2, sn, valid]))
-    parts = []
-    for host, event in fetched:
-        if event is not None:
-            event.synchronize()
-        parts.append([t.numpy() for t in host])
+    parts = [wait(p) for p in fetched]
     (cand_h, cand_w, params, center_h, center_w, rm, r2, sn,
      cand_valid) = (np.concatenate([p[j] for p in parts], axis=1)
                     for j in range(9))

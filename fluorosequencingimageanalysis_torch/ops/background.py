@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import is_device_list, resolve_device, shares
 
 _REFLECT_INDEX_CACHE: dict = {}
 _PAIR_BASIS_CACHE: dict = {}
@@ -145,8 +145,6 @@ def _over_frames(fn, stack, device):
     ``Mesh`` ``device``: each share goes to its device (tensor or array),
     every share's ``fn`` is enqueued before any result is gathered, and
     the results return in frame order on the first data device."""
-    from ..parallel.mesh import shares
-
     if not isinstance(stack, torch.Tensor):
         stack = np.asarray(stack)
     single = stack.ndim == 2
@@ -199,7 +197,7 @@ def stack_background(stack, box_size=10, filter_size=10, clip_sigma=3.0,
 
     ``stack``: a tensor (used on its own device; ``device`` is ignored) or
     an array in any camera dtype (uploaded to ``device``). Returns a
-    tensor on that device. A device list or a ``parallel.mesh.Mesh`` in
+    tensor on that device. A device list or a ``_device.Mesh`` in
     ``device`` splits the frames over its data devices (the JAX package's
     ``mesh=``): each share goes to its device, tensor or array, every
     share's maps are enqueued before any is gathered, and the maps return
@@ -213,8 +211,6 @@ def stack_background(stack, box_size=10, filter_size=10, clip_sigma=3.0,
     median) and flat (std == 0 -> mean) fallbacks, median-filter the mesh,
     cubic-spline zoom back to full resolution, crop the pad.
     """
-    from ..parallel.mesh import is_device_list
-
     if is_device_list(device):
         return _over_frames(lambda x: stack_background(
             x, box_size=box_size, filter_size=filter_size,
@@ -286,10 +282,8 @@ def subtract_background_stack(stack, box_size=10, filter_size=10,
     """stack - stack_background(stack) on the device, in the estimator's
     compute dtype. api.Pipeline.run_zstack subtracts inline instead (it
     needs the background map for ``return_background``); both go through
-    ``stack_background``. A device list or a ``parallel.mesh.Mesh`` splits
+    ``stack_background``. A device list or a ``_device.Mesh`` splits
     the frames over its data devices as ``stack_background`` does."""
-    from ..parallel.mesh import is_device_list
-
     if is_device_list(device):
         return _over_frames(lambda x: subtract_background_stack(
             x, box_size=box_size, filter_size=filter_size,

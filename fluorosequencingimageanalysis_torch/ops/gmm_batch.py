@@ -34,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import shares
 from ..utils import profiling
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -235,7 +236,7 @@ def gmm_fit_batched(groups, ks, n_init=10, n_iter=100, reg=1e-6,
         chunk: data chunk length of the twin's E-step; the data are
             padded to a multiple of it.
         device: where the EM runs ("cuda" by default, "cpu" for the twin).
-            A device list or a ``parallel.mesh.Mesh`` splits the model
+            A device list or a ``_device.Mesh`` splits the model
             axis over its data devices (the JAX package's ``mesh=``): each
             gets the data and its contiguous share of the models, and the
             shares return in model order. Models share no sums, so the
@@ -267,7 +268,6 @@ def gmm_fit_batched(groups, ks, n_init=10, n_iter=100, reg=1e-6,
             f"groups {short} have fewer data points than the largest "
             f"component count ({max(ks)}); a mixture needs n_samples >= "
             "n_components")
-    from ..parallel.mesh import shares
 
     G = len(groups)
     J = len(ks)

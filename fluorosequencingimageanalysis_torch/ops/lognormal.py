@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import data_devices, resolve_device, shares
 from .fused_lognormal import pack_table, v8_score_fused
 
 _TABLE_CACHE = {}
@@ -163,7 +163,7 @@ def score_traces(intensities, categories, log_fluor_means, beta_sigma,
         ``CPU_CHUNK`` by the device. Results are chunk-invariant.
     device: where the scoring runs; a CUDA device launches the hand-written
         kernel, "cpu" runs its plain twin. A device list or a
-        ``parallel.mesh.Mesh`` splits each chunk's rows over its data
+        ``_device.Mesh`` splits each chunk's rows over its data
         devices (the JAX package's ``mesh=``), one scoring call a chunk
         and device; each trace's score is its own, so the result is the
         one-device result.
@@ -173,8 +173,6 @@ def score_traces(intensities, categories, log_fluor_means, beta_sigma,
     Every chunk is uploaded and queued before any result is fetched, so the
     device works through them without waiting on the host.
     """
-    from ..parallel.mesh import data_devices, shares
-
     devs = data_devices(device)
     if chunk is None:
         chunk = CUDA_CHUNK if devs[0].type == "cuda" else CPU_CHUNK

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from .. import stepfitting
-from ..models.detect import _fetch_async
+from .._device import shares
+from .._transfer import count_fetched, fetch, wait
 from ..utils import profiling
 from .special import betainc
 
@@ -301,7 +302,7 @@ def stepfit_arrays(photometries, mirror_start=0, chung_kennedy=0,
     filter and the detector run on ``device`` in float64, and the CK traces
     and masks copy back without waiting; every chunk is enqueued before
     any result is read. Results do not depend on the chunk. A device list
-    or a ``parallel.mesh.Mesh`` in ``device`` splits the rows of every
+    or a ``_device.Mesh`` in ``device`` splits the rows of every
     chunk over its data devices (the JAX package's ``mesh=``): all window
     math is within a row, so the result is the one-device result.
     ``n_threads``: threads of the native post-pass (None = min(cpu_count,
@@ -316,7 +317,6 @@ def stepfit_arrays(photometries, mirror_start=0, chung_kennedy=0,
     device) and the native pass the host span "api/stepfit/postpass".
     """
     from ..native import stepchain
-    from ..parallel.mesh import shares
 
     if chunk is None:
         chunk = STEPFIT_CHUNK
@@ -338,6 +338,10 @@ def stepfit_arrays(photometries, mirror_start=0, chung_kennedy=0,
     pending = []
     for lo, hi, dev in pieces:
         with profiling.stage("stepfit/upload"):
+            # Each piece from pinned memory on the current stream, not
+            # through ``_transfer.Uploader``: its side stream and events
+            # cost ~60-110 us more a piece on an H100's host (PERF.md,
+            # section 6).
             piece = host[lo:hi]
             if dev.type == "cuda":
                 piece = piece.pin_memory().to(dev, non_blocking=True)
@@ -357,16 +361,10 @@ def stepfit_arrays(photometries, mirror_start=0, chung_kennedy=0,
             else:
                 out = (sliding_t_masks(piece, window_radius=window_radius,
                                        p_threshold=p_threshold),)
-            pending.append(_fetch_async(list(out)))
+            pending.append(fetch(list(out)))
     with profiling.stage("stepfit/fetch"):
-        cols = []
-        for tensors, event in pending:
-            if event is not None:
-                event.synchronize()
-            cols.append([t.numpy() for t in tensors])
-            profiling.bump("ledger/result_fetches", len(tensors))
-            profiling.bump("ledger/fetch_bytes",
-                           sum(int(a.nbytes) for a in cols[-1]))
+        cols = [wait(p) for p in pending]
+        count_fetched([a for c in cols for a in c])
         masks = np.concatenate([c[-1] for c in cols])
         ck = (np.concatenate([c[0] for c in cols]) if chung_kennedy > 0
               else mirrored)

@@ -2,7 +2,8 @@
 or sharded over several.
 
 Counterpart of fluorosequencingimageanalysis_tpu/parallel/mesh.py:
-``make_mesh``, ``shard_fields`` and ``experiment_step_sharded``, with
+``shard_fields`` and ``experiment_step_sharded`` (its ``make_mesh`` is
+``_device.make_mesh``), with
 ``experiment_step`` as the one-device step they share. The JAX package
 partitions one jitted program over a (data, model) device mesh; here a
 ``Mesh`` is torch devices in a (data, model) grid, and
@@ -17,14 +18,9 @@ thread (a step reads nothing back: the non-max suppression runs its whole
 fixpoint on the card, ``ops/consolidate.py``); every shard's results stay
 on its device until all have run. Nothing here is timed on more than one card.
 
-``data_devices`` and ``shares`` are what the other sharded ops share
-(``stack_background``, ``lc_track``, ``stepfit_batched``,
-``score_traces`` and ``gmm_fit_batched``): their ``device=`` takes a
-device, a list of devices or a ``Mesh``, and they cut their rows (frames,
-tracks, traces, models) into contiguous, in-order shares, one per device
-of the data axis. The JAX package pads its rows to
-a multiple of the axis for its compiled shapes; torch splits unevenly, so
-nothing is padded here.
+``Mesh``, ``make_mesh`` and the rule that cuts rows over a device list
+(``data_devices``, ``shares``) live in ``_device.py``, below every op
+that shards.
 """
 
 from __future__ import annotations
@@ -32,7 +28,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import require_cuda, resolve_device
 from ..models.detect import SpotFindResult, detect_and_fit_batch
 from ..ops import photometry as phot_ops
 from ..ops.candidates import topk_lowest_index
@@ -42,102 +37,6 @@ from ..utils.rounding import py2_round_device_i32
 
 PHOTOMETRY_METHODS = ("mexican_hat", "simple", "maximum", "gaussian_volume",
                       "sigmas")
-
-
-class Mesh:
-    """Torch devices in a (data, model) grid: ``devices`` is a numpy
-    object array of ``torch.device`` of shape (data, model),
-    ``axis_names == ("data", "model")`` and ``shape`` maps each axis name
-    to its size, as a ``jax.sharding.Mesh`` does."""
-
-    axis_names = ("data", "model")
-
-    def __init__(self, devices):
-        devices = np.asarray(devices, dtype=object)
-        if devices.ndim != 2 or devices.size == 0:
-            raise ValueError("a mesh needs a non-empty (data, model) grid "
-                             "of devices")
-        self.devices = devices
-
-    @property
-    def shape(self):
-        return dict(zip(self.axis_names, self.devices.shape))
-
-    @property
-    def size(self):
-        return self.devices.size
-
-
-def make_mesh(n_devices=None, data_axis=None, model_axis=None,
-              devices=None):
-    """A ('data', 'model') mesh over ``devices`` (default: every visible
-    CUDA device; raises without one), the first ``n_devices`` of them.
-
-    By default all devices go to 'data' (the fields axis); pass explicit
-    axis sizes for other splits. A device may appear more than once
-    (two shards on one card)."""
-    if devices is None:
-        require_cuda()
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    else:
-        devices = [resolve_device(d) for d in devices]
-    if n_devices is None:
-        n_devices = len(devices)
-    if n_devices > len(devices):
-        raise ValueError(f"n_devices={n_devices} exceeds the "
-                         f"{len(devices)} devices given")
-    devices = devices[:n_devices]
-    if data_axis is None and model_axis is None:
-        data_axis, model_axis = n_devices, 1
-    elif data_axis is None:
-        data_axis = n_devices // model_axis
-    elif model_axis is None:
-        model_axis = n_devices // data_axis
-    if data_axis * model_axis != n_devices:
-        raise ValueError("data_axis * model_axis must equal n_devices")
-    grid = np.empty((data_axis, model_axis), dtype=object)
-    for i, dev in enumerate(devices):
-        grid[i // model_axis, i % model_axis] = dev
-    return Mesh(grid)
-
-
-def is_device_list(device):
-    """Whether ``device`` names a data axis to shard over (a list or tuple
-    of devices, or a ``Mesh``) rather than one device."""
-    return isinstance(device, (list, tuple, Mesh))
-
-
-def data_devices(device):
-    """The devices of the data axis, as a list of torch.device: a
-    ``Mesh``'s ``devices[:, 0]`` (the JAX package shards these ops over
-    ``mesh.axis_names[0]``; a model axis is not used by them), each entry
-    of a list or tuple, or the one device named. A CUDA device the process
-    cannot reach raises (``resolve_device``)."""
-    if isinstance(device, Mesh):
-        return list(device.devices[:, 0])
-    if isinstance(device, (list, tuple)):
-        if not device:
-            raise ValueError("an empty device list")
-        return [resolve_device(d) for d in device]
-    return [resolve_device(device)]
-
-
-def shares(n, device):
-    """``n`` rows cut into contiguous, in-order spans, one per data device
-    of ``device`` (see ``data_devices``), the first ``n % len(devices)``
-    one row longer: a list of (lo, hi, torch.device) that holds only the
-    non-empty spans, or one empty span on the first device when ``n`` is
-    0."""
-    devs = data_devices(device)
-    base, extra = divmod(n, len(devs))
-    spans, lo = [], 0
-    for i, d in enumerate(devs):
-        hi = lo + base + (i < extra)
-        if hi > lo:
-            spans.append((lo, hi, d))
-        lo = hi
-    return spans or [(0, 0, devs[0])]
 
 
 def shard_fields(stack, mesh):

@@ -32,7 +32,8 @@ import os
 import numpy as np
 import torch
 
-from .mesh import experiment_step_sharded, make_mesh, shard_fields
+from .._device import make_mesh
+from .mesh import experiment_step_sharded, shard_fields
 
 _INITIALIZED = False
 _LOCAL_DEVICES = None  # from initialize(local_device_ids=...)

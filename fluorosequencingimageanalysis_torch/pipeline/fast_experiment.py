@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._transfer import fetch, wait
 from ..native.tracklink import greedy_link
 from ..ops import photometry as photometry_ops
 from ..utils import profiling
@@ -331,9 +332,11 @@ def _queue_photometry(stack, img_id, hs, ws, method, window_radius, brim,
                       chunk):
     """Enqueue chunked window photometry at (img_id, hs, ws) over the
     (F, C, H, W) ``stack`` tensor on its device. On a CUDA device each
-    chunk's indices upload from pinned memory, its result copies into
-    pinned host memory, and an event marks the copy, so nothing here
-    waits for the device. Returns the pending list for
+    chunk's indices upload from pinned memory on the current stream (not
+    through ``_transfer.Uploader``, whose side stream and events cost
+    ~50 us more a chunk on an H100's host: PERF.md, section 6) and its
+    result copies back through ``_transfer.fetch``, so nothing here waits
+    for the device. Returns the pending list for
     ``_resolve_photometry``."""
     Fp, C, H, W = stack.shape
     imgs = stack.reshape(Fp * C, H, W)
@@ -349,25 +352,15 @@ def _queue_photometry(stack, img_id, hs, ws, method, window_radius, brim,
             idx = idx.pin_memory().to(imgs.device, non_blocking=True)
         vals = reduce(gather_windows(imgs, idx[0], idx[1], idx[2],
                                      window_radius))
-        event = None
-        if on_card:
-            host = torch.empty(vals.shape, dtype=vals.dtype,
-                               pin_memory=True)
-            host.copy_(vals, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            vals = host
         profiling.bump("ledger/photometry_dispatches")
-        pending.append((lo, hi, vals, event))
+        pending.append((lo, hi, fetch([vals])))
     return pending
 
 
 def _resolve_photometry(pending, out):
     """Wait for queued photometry chunks and write them into ``out``."""
-    for lo, hi, vals, event in pending:
-        if event is not None:
-            event.synchronize()
-        out[lo:hi] = vals.numpy()
+    for lo, hi, chunk in pending:
+        out[lo:hi] = wait(chunk)[0]
 
 
 def _dispatch_photometry(stack, img_id, hs, ws, method, window_radius,

@@ -33,7 +33,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.detect import _as_images, _fetch_async
+from .._device import is_device_list, shares
+from .._transfer import Uploader, count_fetched, fetch, wait
+from ..models.detect import _as_images
 from ..ops import photometry as phot_ops
 from ..ops.background import widen
 from ..ops.quality import edge_ring_indices
@@ -151,7 +153,8 @@ def _start_states(h0, w0, device):
     """(host int32 arrays, their tensors on ``device``) of the four start
     states, uploaded as one array."""
     states = _initial_centers(h0, w0)
-    dev_states = torch.from_numpy(np.stack(states)).to(device)
+    dev_states = Uploader(torch.from_numpy(np.stack(states)),
+                          [(0, len(states), device)]).take(0)
     return states, tuple(dev_states)
 
 
@@ -164,14 +167,12 @@ def lc_track(movie, h0, w0, search_radius=3, s_n_cutoff=3.0, device=None):
 
     ``movie``: a tensor (tracked where it lies unless ``device`` is given)
     or an array (uploaded to ``device``, default "cuda"). A device list or
-    a ``parallel.mesh.Mesh`` in ``device`` splits the tracks over its data
+    a ``_device.Mesh`` in ``device`` splits the tracks over its data
     devices (the JAX package's ``mesh=``): the movie goes once to each
     device, each device walks its contiguous share of the tracks, every
     share is enqueued before any result is fetched, and the shares return
     in track order. Tracks are independent walks, so no filler walks are
     needed and the result is the one-device result."""
-    from ..parallel.mesh import is_device_list, shares
-
     states = np.stack(_initial_centers(h0, w0))
     N = states.shape[1]
     if is_device_list(device):
@@ -184,19 +185,17 @@ def lc_track(movie, h0, w0, search_radius=3, s_n_cutoff=3.0, device=None):
         movie_dev = _as_images(movie, device)
         spans = [(0, N, movie_dev.device)]
         movies = {movie_dev.device: movie_dev}
+    # Track-major, so that each share of the tracks is a piece of rows.
+    uploader = Uploader(torch.from_numpy(np.ascontiguousarray(states.T)),
+                        spans)
     pending = []
     with torch.no_grad():
-        for lo, hi, d in spans:
-            dev_states = torch.from_numpy(
-                np.ascontiguousarray(states[:, lo:hi])).to(d)
-            pending.append(_fetch_async(list(_lc_track_scan(
-                movies[d], *dev_states, search_radius=search_radius,
+        for i, (_, _, d) in enumerate(spans):
+            pending.append(fetch(list(_lc_track_scan(
+                movies[d], *uploader.take(i).T,
+                search_radius=search_radius,
                 s_n_cutoff=float(s_n_cutoff)))))
-    parts = []
-    for host, event in pending:
-        if event is not None:
-            event.synchronize()
-        parts.append([x.numpy() for x in host])
+    parts = [wait(p) for p in pending]
     rec_h, rec_w, present = (np.concatenate(col, axis=1)
                              for col in zip(*parts))
     rec_h = np.concatenate([states[0][None], rec_h])
@@ -282,15 +281,11 @@ def lc_track_and_photometry(movie_dev, h0, w0, method, search_radius=3,
                   for lo in range(0, T * N, chunk)]
         phot_d = torch.cat(chunks) if chunks else movie_f.new_zeros(0)
         profiling.bump("ledger/photometry_dispatches", len(chunks))
-        host, event = _fetch_async([full_h, full_w, present_full, phot_d])
+        pending = fetch([full_h, full_w, present_full, phot_d])
     profiling.bump("ledger/step_dispatches")
-    if event is not None:
-        event.synchronize()
-    rec_h, rec_w, present, vals = (x.numpy() for x in host)
-    profiling.bump("ledger/result_fetches", 4)
-    profiling.bump("ledger/fetch_bytes",
-                   int(rec_h.nbytes + rec_w.nbytes + present.nbytes +
-                       vals.nbytes))
+    fetched = wait(pending)
+    count_fetched(fetched)
+    rec_h, rec_w, present, vals = fetched
     vals = vals.astype(np.float64).reshape(T, N)
 
     interior = ((rec_h >= win_r) & (rec_h < H - win_r) &

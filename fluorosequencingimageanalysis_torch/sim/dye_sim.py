@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.detect import _fetch_async
+from .._transfer import fetch, wait
 
 
 class SimDraws(NamedTuple):
@@ -289,15 +289,6 @@ def _color_intensities(counts, labels_sorted, beta, beta_sigma, seed, ddif):
             for k in range(len(labels_sorted))]
 
 
-def _fetch(tensors):
-    """Host numpy copies of device tensors, all copies started before the
-    first wait."""
-    host, event = _fetch_async(tensors)
-    if event is not None:
-        event.synchronize()
-    return [h.numpy() for h in host]
-
-
 def peptide_simulation_batched(sequence, labels, num_mocks, num_edmans,
                                num_simulations, seed=0, beta=None,
                                beta_sigma=None, ddif=None, device="cuda",
@@ -317,8 +308,8 @@ def peptide_simulation_batched(sequence, labels, num_mocks, num_edmans,
     # one round of copies.
     intens_d = _color_intensities(counts_d, labels_sorted, beta, beta_sigma,
                                   seed, ddif)
-    counts, loss, dud, *intens = _fetch([counts_d, loss_d, dud_d]
-                                        + intens_d)
+    counts, loss, dud, *intens = wait(fetch([counts_d, loss_d, dud_d]
+                                              + intens_d))
     n = counts.shape[0]
     intens = {label: intens[k].astype(np.float64)
               for k, label in enumerate(labels_sorted)}
@@ -400,9 +391,9 @@ def simulate_and_fit_batched(sequence, labels, num_mocks, num_edmans,
                     intens_d[k][lo:hi], counts_k[lo:hi], table, lfm,
                     float(beta_sigma), float(max_deviation))
                 pending.append((bi, fo))
-    fetched = _fetch([t for pair in pending for t in pair]
-                     + [counts_d, loss_d, dud_d]
-                     + (intens_d if fetch_intensities else []))
+    fetched = wait(fetch([t for pair in pending for t in pair]
+                         + [counts_d, loss_d, dud_d]
+                         + (intens_d if fetch_intensities else [])))
     results = fetched[:2 * len(pending)]
     counts, loss, dud = fetched[2 * len(pending):2 * len(pending) + 3]
 

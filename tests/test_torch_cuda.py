@@ -1045,3 +1045,79 @@ def test_kernel_f_rejects_what_it_does_not_take(dev):
         consolidate(x, x.cpu(), x, v)
     with pytest.raises(ValueError, match="both cand_h and cand_w"):
         consolidate(x, x, x, v, 4.0, x)
+
+
+def test_uploader_pieces_land_on_the_card_behind_their_events(dev):
+    """``_transfer.Uploader`` on the card: every piece is enqueued before
+    the first is taken, and each equals its host slice once taken (the
+    current stream waits on the piece's event); the pinned copy is made
+    once for the uploader, in one ``api/upload/pin`` span, and a host
+    tensor already pinned is not copied again."""
+    from fluorosequencingimageanalysis_torch._transfer import Uploader
+    from fluorosequencingimageanalysis_torch.utils import profiling
+
+    host = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 65535, (24, 64, 64)).astype(np.uint16))
+    pieces = [(lo, lo + 8, dev) for lo in range(0, 24, 8)]
+    profiling.reset_timings()
+    profiling.reset_counters()
+    with profiling.tracing():
+        up = Uploader(host, pieces)
+        for i in range(len(pieces)):
+            up.upload(i)
+        parts = []
+        for i, (lo, hi, _) in enumerate(pieces):
+            part = up.take(i)
+            parts.append(part.to(torch.int32) + 1)   # reads on the stream
+        for (lo, hi, _), got in zip(pieces, parts):
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), host[lo:hi].numpy().astype(np.int32) + 1)
+        assert profiling.timings()["api/upload/pin"]["count"] == 1
+        staged = host.pin_memory()
+        again = Uploader(staged, pieces[:1])
+        assert torch.equal(again.take(0).cpu(), host[:8])
+        assert again.host is staged
+        assert profiling.timings()["api/upload/pin"]["count"] == 2
+    c = profiling.counters()
+    assert c["ledger/uploads"] == 4
+    assert c["ledger/upload_bytes"] == host.nbytes + host[:8].nbytes
+    profiling.reset_timings()
+    profiling.reset_counters()
+
+
+def test_fetch_then_wait_equals_cpu(dev):
+    from fluorosequencingimageanalysis_torch._transfer import fetch, wait
+
+    tensors = [torch.randn(300, 7, device=dev),
+               torch.arange(1000, device=dev, dtype=torch.int16),
+               torch.rand(50, device=dev) > 0.5]
+    pending = fetch(tensors)
+    host, event = pending
+    assert event is not None
+    assert all(torch.from_numpy(h).is_pinned() for h in host)
+    for got, t in zip(wait(pending), tensors):
+        np.testing.assert_array_equal(got, t.cpu().numpy())
+
+
+def test_run_stack_uploads_through_the_transfer_layer(dev):
+    """``Pipeline.run_stack`` on the card: one counted upload of the host
+    stack, and the CPU's result."""
+    from fluorosequencingimageanalysis_torch.utils import profiling
+
+    stack, _ = make_stack(2, 3, 96, 96, spots_per_field=15, seed=4)
+    stack = stack.astype(np.uint16)
+    cfg = PipelineConfig(detect=DetectConfig(max_candidates=128,
+                                             num_iters=20))
+    profiling.reset_counters()
+    gpu = Pipeline(cfg, device=dev).run_stack(stack)
+    c = profiling.counters()
+    assert c["ledger/uploads"] == 1
+    assert c["ledger/upload_bytes"] == stack.nbytes
+    cpu = Pipeline(cfg, device="cpu").run_stack(stack)
+    assert list(gpu) == list(cpu)
+    for k in cpu:
+        assert gpu[k].shape == cpu[k].shape and gpu[k].dtype == cpu[k].dtype
+    np.testing.assert_array_equal(gpu["offsets_h"], cpu["offsets_h"])
+    np.testing.assert_array_equal(gpu["offsets_w"], cpu["offsets_w"])
+    np.testing.assert_array_equal(gpu["cand_count"], cpu["cand_count"])
+    profiling.reset_counters()

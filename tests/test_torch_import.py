@@ -27,6 +27,8 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.batch",
     "fluorosequencingimageanalysis_torch.config",
     "fluorosequencingimageanalysis_torch._build",
+    "fluorosequencingimageanalysis_torch._device",
+    "fluorosequencingimageanalysis_torch._transfer",
     "fluorosequencingimageanalysis_torch.models.detect",
     "fluorosequencingimageanalysis_torch.parallel.mesh",
     "fluorosequencingimageanalysis_torch.ops.background",

@@ -1,6 +1,6 @@
-"""Port parity: the multi-device layer (parallel/mesh.py's mesh, shards and
-sharded step; ``Pipeline(device=[...])``; parallel/multihost.py on
-torch.distributed).
+"""Port parity: the multi-device layer (_device.py's mesh,
+parallel/mesh.py's shards and sharded step; ``Pipeline(device=[...])``;
+parallel/multihost.py on torch.distributed).
 
 On the CPU a mesh is a grid of "cpu" devices: the sharded step must equal
 the port's one-device ``experiment_step`` and the JAX package's
@@ -66,7 +66,7 @@ TT_KW = dict(search_radius=3, s_n_cutoff=3.0, mirror_start=3,
 def test_make_mesh_follows_the_jax_axis_rules(args, kw):
     from fluorosequencingimageanalysis_tpu.parallel.mesh import (
         make_mesh as jax_make_mesh)
-    from fluorosequencingimageanalysis_torch.parallel.mesh import make_mesh
+    from fluorosequencingimageanalysis_torch._device import make_mesh
     want = jax_make_mesh(*args, **kw)
     got = make_mesh(*args, devices=["cpu"] * 8, **kw)
     assert got.axis_names == tuple(want.axis_names) == ("data", "model")
@@ -78,7 +78,7 @@ def test_make_mesh_follows_the_jax_axis_rules(args, kw):
 def test_make_mesh_raises_as_the_jax_function_does(monkeypatch):
     from fluorosequencingimageanalysis_tpu.parallel.mesh import (
         make_mesh as jax_make_mesh)
-    from fluorosequencingimageanalysis_torch.parallel.mesh import make_mesh
+    from fluorosequencingimageanalysis_torch._device import make_mesh
     for kw in (dict(data_axis=3), dict(model_axis=3),
                dict(data_axis=2, model_axis=2)):
         with pytest.raises(ValueError, match="must equal n_devices"):
@@ -93,8 +93,9 @@ def test_make_mesh_raises_as_the_jax_function_does(monkeypatch):
 
 
 def test_shard_fields_splits_the_fields_axis_on_data():
+    from fluorosequencingimageanalysis_torch._device import make_mesh
     from fluorosequencingimageanalysis_torch.parallel.mesh import (
-        make_mesh, shard_fields)
+        shard_fields)
     stack = np.arange(8 * 2 * 3, dtype=np.float32).reshape(8, 2, 3)
     shards = shard_fields(stack, make_mesh(devices=["cpu"] * 8,
                                            data_axis=4))
@@ -129,8 +130,9 @@ def test_sharded_step_equals_the_one_device_step(step_stack, one_device_step,
     the model devices); integers exactly, floats at the step tolerances."""
     from test_torch_step import _assert_step_parity
 
+    from fluorosequencingimageanalysis_torch._device import make_mesh
     from fluorosequencingimageanalysis_torch.parallel.mesh import (
-        experiment_step_sharded, make_mesh)
+        experiment_step_sharded)
     torch.set_num_threads(1)
     mesh = make_mesh(devices=["cpu"] * n, data_axis=data_axis)
     out = experiment_step_sharded(step_stack, mesh, **STEP)
@@ -151,8 +153,9 @@ def test_sharded_step_equals_the_jax_sharded_step(step_stack,
 
     from fluorosequencingimageanalysis_tpu.parallel.mesh import (
         experiment_step_sharded as jax_sharded, make_mesh as jax_make_mesh)
+    from fluorosequencingimageanalysis_torch._device import make_mesh
     from fluorosequencingimageanalysis_torch.parallel.mesh import (
-        experiment_step_sharded, make_mesh)
+        experiment_step_sharded)
     torch.set_num_threads(1)
     want = {k: np.asarray(v) for k, v in jax_sharded(
         jnp.asarray(step_stack), jax_make_mesh(8), **STEP).items()}
@@ -174,7 +177,7 @@ def test_pipeline_over_a_device_list_pads_and_raises_elsewhere(tmp_path):
 
     from fluorosequencingimageanalysis_torch import api
     from fluorosequencingimageanalysis_torch.api import Pipeline
-    from fluorosequencingimageanalysis_torch.parallel.mesh import make_mesh
+    from fluorosequencingimageanalysis_torch._device import make_mesh
     from fluorosequencingimageanalysis_torch.utils.synth import (
         make_gmm_photometries, make_step_traces)
     torch.set_num_threads(1)
@@ -363,7 +366,7 @@ def test_two_processes_run_the_timetrace_tracker_and_background(tmp_path):
 
 def _child(mode, rank, nproc, port, out_dir):
     from fluorosequencingimageanalysis_torch.parallel import multihost
-    from fluorosequencingimageanalysis_torch.parallel.mesh import make_mesh
+    from fluorosequencingimageanalysis_torch._device import make_mesh
     torch.set_num_threads(1)
     multihost.initialize(f"localhost:{port}", num_processes=nproc,
                          process_id=rank)

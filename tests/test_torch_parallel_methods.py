@@ -30,7 +30,7 @@ from fluorosequencingimageanalysis_torch import api
 from fluorosequencingimageanalysis_torch.api import Pipeline
 from fluorosequencingimageanalysis_torch.config import (
     DetectConfig, LognormalConfig, PipelineConfig, StepfitConfig)
-from fluorosequencingimageanalysis_torch.parallel.mesh import (
+from fluorosequencingimageanalysis_torch._device import (
     Mesh, data_devices, make_mesh, shares)
 from fluorosequencingimageanalysis_torch.utils import synth
 
