@@ -5,8 +5,9 @@ the greedy tracker and the two step-fit cores) exposes a plain C entry
 point and is compiled, by ``nvcc`` or by the host compiler ``g++``
 respectively, into
 ``_build/<name>-<hash>.so`` inside this package (git-ignored), where the
-hash covers the source, for CUDA sources the shared headers
-(``csrc/*.cuh``), and the compiler flags; it is then loaded with ctypes.
+hash covers the source, the shared headers (``csrc/*.cuh`` for CUDA
+sources, ``csrc/*.h`` for host ones), and the compiler flags; it is then
+loaded with ctypes.
 ptxas's report of each CUDA build (registers, shared memory, spills) is
 kept beside it as ``_build/<name>-<hash>.ptxas.txt``; ``ptxas_info``
 reads it. The library is written to a per-process temporary file and
@@ -107,8 +108,8 @@ def flags(name: str) -> tuple:
 def library_path(name: str) -> str:
     """Where the build of ``csrc/<name>`` lives, keyed by content."""
     digest = hashlib.sha256()
-    headers = (sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-               if _is_cuda(name) else [])
+    headers = sorted(glob.glob(os.path.join(
+        CSRC, "*.cuh" if _is_cuda(name) else "*.h")))
     for path in [source(name), *headers]:
         with open(path, "rb") as f:
             digest.update(f.read())

@@ -610,7 +610,11 @@ class Pipeline:
         group), "api/run_experiment/groups" (the span of both, so the
         overlap is run_stack + track+photometry - groups), then
         "api/run_experiment/hole_flush", "api/run_experiment/rows" (row
-        post-processing and categories) and "api/run_experiment/csv".
+        post-processing and categories) and "api/run_experiment/csv"; and
+        the counter "experiment/csv_rows_native", the track-CSV rows the
+        native writer wrote (``fast_experiment.write_track_fields_csv``
+        where the rows are still ``_rows_by_field``'s, else
+        ``write_track_rows_csv``).
 
         Returns a dict: rows [(channel, field, h, w, category,
         photometries)], category_counts and filtered_category_counts
@@ -623,7 +627,8 @@ class Pipeline:
         from .pipeline.experiment import write_category_counts_csv
         from .pipeline.fast_experiment import (
             _spot_lists, check_photometry_method, filter_monotone_categories,
-            flush_hole_queue, run_experiment_stack, write_track_rows_csv)
+            flush_hole_queue, run_experiment_stack, write_track_fields_csv,
+            write_track_rows_csv)
 
         phot = self.config.photometry
         check_photometry_method(phot.method)
@@ -650,6 +655,10 @@ class Pipeline:
         mc_eff = (max_candidates if max_candidates is not None
                   else self.config.detect.max_candidates)
         rows = []
+        # (channel, field, FieldArrays) behind the rows while every field's
+        # rows are still those _rows_by_field made; the track CSV is then
+        # written from them, with no pass over the rows.
+        csv_fields = []
         category_counts = {}
         offsets_out = {}
         summary = {}
@@ -673,6 +682,7 @@ class Pipeline:
 
             def track(out_grp, dev_grp, lo, stack=stack, C=C,
                       hole_queue=hole_queue):
+                field_arrays = []
                 with self._stage("api/run_experiment/track+photometry"):
                     Fg = out_grp["offsets_h"].shape[0]
                     rhs, rws, values = _spot_lists(out_grp, Fg, C)
@@ -696,9 +706,12 @@ class Pipeline:
                         keep_invalid=keep_invalid,
                         host_images=(stack[lo:lo + Fg]
                                      if keep_invalid and not host_phot
-                                     else None))
+                                     else None),
+                        field_arrays=field_arrays)
                 n_spots = sum(len(rh) for per_c in rhs for rh in per_c)
-                return per_field, out_grp, n_spots
+                if len(field_arrays) != len(per_field):   # no trace at all
+                    field_arrays = None
+                return per_field, out_grp, n_spots, field_arrays
 
             with self._stage("api/run_experiment/groups"), \
                     concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -708,9 +721,10 @@ class Pipeline:
                                max_spots=max_spots, stack_key=stack_key,
                                dispatch=dispatch)]
                 parts = [f.result() for f in futures]
-            per_field = [r for p, _, _ in parts for r in p]
-            outs = [o for _, o, _ in parts]
-            spot_count = sum(n for _, _, n in parts)
+            per_field = [r for p, _, _, _ in parts for r in p]
+            made = list(per_field)   # the row lists _rows_by_field made
+            outs = [o for _, o, _, _ in parts]
+            spot_count = sum(n for _, _, n, _ in parts)
             n_over = sum(int(o["spot_overflow"].sum()) for o in outs)
             n_cand_over = sum(int((o["cand_count"] > mc_eff).sum())
                               for o in outs)
@@ -838,6 +852,16 @@ class Pipeline:
                     "trace_count": n_traces,
                     "singleton_count": n_singletons,
                 }
+                # Every surface that changes rows replaces a field's list
+                # (save_averages changes them in the loop above as well).
+                groups = [g for _, _, _, g in parts]
+                if csv_fields is not None and not save_averages and \
+                        None not in groups and \
+                        all(a is b for a, b in zip(per_field, made)):
+                    csv_fields += [(channel, f, a) for f, a in enumerate(
+                        a for g in groups for a in g)]
+                else:
+                    csv_fields = None
         invalid_fields_mask = None
         if remainder_threshold is not None:
             n_fields = len(next(iter(remainder_counts.values())))
@@ -857,9 +881,14 @@ class Pipeline:
                         for c in chans)
                 for f in range(n_fields)]
             rows = [r for r in rows if invalid_fields_mask[r[1]]]
+            if csv_fields is not None:
+                csv_fields = [c for c in csv_fields
+                              if invalid_fields_mask[c[1]]]
         filtered = filter_monotone_categories(category_counts)
         with self._stage("api/run_experiment/csv"):
-            if csv_path is not None:
+            if csv_path is not None and csv_fields is not None:
+                write_track_fields_csv(csv_fields, n_cycles, csv_path)
+            elif csv_path is not None:
                 write_track_rows_csv(rows, n_cycles, csv_path,
                                      save_averages=save_averages)
             if category_csv_path is not None:

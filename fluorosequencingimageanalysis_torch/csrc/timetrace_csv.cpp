@@ -16,10 +16,7 @@
 // the first), and the photometry intermediates change every frame.
 //
 // Numbers are laid out as Python writes them:
-// - a float as repr(float) (which str(numpy.float64) equals): the shortest
-//   round-trip digits (std::to_chars), fixed notation for decimal
-//   exponents -4 <= e < 16 with ".0" on integral values, otherwise
-//   d[.ddd]e+XX with at least two exponent digits; nan, inf, -inf, -0.0;
+// - a float as repr(float) (pyrepr.h);
 // - an integer in decimal, and a missing step as "None".
 // The fit's R^2 is Trace.coefficient_of_determination's bit for bit:
 // x ** 2 as CPython's float power computes it (libm's pow), the sums as
@@ -37,6 +34,8 @@
 #include <vector>
 
 #include <unistd.h>
+
+#include "pyrepr.h"
 
 namespace {
 
@@ -144,74 +143,6 @@ double np_mean(const double* a, int64_t n) {
     return (0.0 + pairwise_sum(a, n)) / static_cast<double>(n);
 }
 
-// repr(float) into p; returns the end. At most 24 characters.
-char* put_double(char* p, double v) {
-    if (std::isnan(v)) {
-        std::memcpy(p, "nan", 3);
-        return p + 3;
-    }
-    if (std::isinf(v)) {
-        if (v < 0) *p++ = '-';
-        std::memcpy(p, "inf", 3);
-        return p + 3;
-    }
-    char s[40];
-    char* end = std::to_chars(s, s + sizeof s, v,
-                              std::chars_format::scientific).ptr;
-    const char* q = s;
-    if (*q == '-') {
-        *p++ = '-';
-        ++q;
-    }
-    char digits[24];
-    int n = 0;
-    for (; *q != 'e'; ++q) {
-        if (*q != '.') digits[n++] = *q;
-    }
-    ++q;  // past 'e'
-    bool neg_exp = *q == '-';
-    ++q;  // past the sign
-    int exp = 0;
-    std::from_chars(q, end, exp);
-    if (neg_exp) exp = -exp;
-    int decpt = exp + 1;  // digits are 0.ddd x 10^decpt
-    if (decpt <= -4 || decpt > 16) {
-        *p++ = digits[0];
-        if (n > 1) {
-            *p++ = '.';
-            std::memcpy(p, digits + 1, n - 1);
-            p += n - 1;
-        }
-        *p++ = 'e';
-        *p++ = exp < 0 ? '-' : '+';
-        int a = exp < 0 ? -exp : exp;
-        if (a < 10) *p++ = '0';
-        return std::to_chars(p, p + 4, a).ptr;
-    }
-    if (decpt <= 0) {
-        *p++ = '0';
-        *p++ = '.';
-        std::memset(p, '0', -decpt);
-        p += -decpt;
-        std::memcpy(p, digits, n);
-        return p + n;
-    }
-    if (decpt >= n) {
-        std::memcpy(p, digits, n);
-        p += n;
-        std::memset(p, '0', decpt - n);
-        p += decpt - n;
-        *p++ = '.';
-        *p++ = '0';
-        return p;
-    }
-    std::memcpy(p, digits, decpt);
-    p += decpt;
-    *p++ = '.';
-    std::memcpy(p, digits + decpt, n - decpt);
-    return p + (n - decpt);
-}
-
 // One trace's plateaus (start, stop, height), unmirrored.
 struct Plateaus {
     const int32_t* start;
@@ -310,7 +241,7 @@ struct Text {
     }
     void put_double(double v) {
         char b[32];
-        put(b, ::put_double(b, v) - b);
+        put(b, pyrepr::put_double(b, v) - b);
     }
 };
 
@@ -323,7 +254,7 @@ struct Reprs {
         off.assign(1, 0);
         char b[32];
         for (int64_t i = 0; i < n; i++) {
-            text.append(b, ::put_double(b, v[i]) - b);
+            text.append(b, pyrepr::put_double(b, v[i]) - b);
             off.push_back(static_cast<uint32_t>(text.size()));
         }
     }
@@ -567,7 +498,7 @@ extern "C" void ttcsv_format_doubles(const double* v, int64_t n, char* out,
                                      int64_t* ends) {
     char* p = out;
     for (int64_t i = 0; i < n; i++) {
-        p = put_double(p, v[i]);
+        p = pyrepr::put_double(p, v[i]);
         ends[i] = p - out;
     }
 }

@@ -24,6 +24,8 @@ until ``flush_hole_queue``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -396,7 +398,8 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
                          candidate_radius=2, chunk=65536,
                          aperture_radius=3, box_size=10, filter_size=10,
                          hole_queue=None, skip_hole_gathers=False,
-                         keep_invalid=False, host_images=None):
+                         keep_invalid=False, host_images=None,
+                         field_arrays=None):
     """All fields: tracking -> fill-in -> validity -> photometry -> rows.
 
     stack: (F, C, H, W) tensor on the device that measures the holes (the
@@ -423,6 +426,10 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
     numpy array or tensor of these fields), which is then required,
     except for sextractor, whose zero-padded aperture sum is the clipped
     measurement already.
+
+    field_arrays: if a list is given, one ``FieldArrays`` a field is
+    appended to it, the arrays behind that field's rows (none where no
+    field has a trace).
 
     Returns a list of per-field row lists, each row (category, h0, w0,
     photometries (C,)) in the reference's order.
@@ -497,7 +504,8 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
                         stack_np[f, c], p[ok, c, 0], p[ok, c, 1],
                         aperture_radius, box_size, filter_size)
             start = stop
-        return _rows_by_field(pos, cats, phot, field_sizes, F)
+        return _rows_by_field(pos, cats, phot, field_sizes, F,
+                          field_arrays)
 
     if photometry_method in _FIT_METRIC_DEFAULTS:
         phot = _lookup_spot_values(
@@ -505,7 +513,8 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
             _FIT_METRIC_DEFAULTS[photometry_method])
         if keep_invalid:
             phot[~hole_ok] = np.nan  # the reference's None Spots
-        return _rows_by_field(pos, cats, phot, field_sizes, F)
+        return _rows_by_field(pos, cats, phot, field_sizes, F,
+                          field_arrays)
 
     phot = _lookup_spot_values(rhs, rws, spot_values, C, field_of, pos,
                                cats, np.nan)
@@ -528,7 +537,8 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
         _host_clipped_photometry(host_images, field_of, pos,
                                  ~win_ok & hole_ok, photometry_method,
                                  window_radius, photometry_brim, phot)
-    return _rows_by_field(pos, cats, phot, field_sizes, F)
+    return _rows_by_field(pos, cats, phot, field_sizes, F,
+                          field_arrays)
 
 
 def _host_clipped_photometry(host_images, field_of, pos, trunc, method,
@@ -556,9 +566,23 @@ def _host_clipped_photometry(host_images, field_of, pos, trunc, method,
         out[t, c] = v
 
 
-def _rows_by_field(pos, cats, phot, field_sizes, F):
+class FieldArrays(NamedTuple):
+    """The arrays behind one field's rows from ``_rows_by_field``: row k
+    is (cat_tuples[category[k]], int(h0[k]), int(w0[k]), phot[index[k]]).
+    ``phot`` is the array the rows' photometries are views of, so that
+    the hole photometry ``flush_hole_queue`` writes later shows here too."""
+    category: np.ndarray      # (n,) index into cat_tuples
+    cat_tuples: list
+    h0: np.ndarray            # (n,) float64 positions, as pos holds them
+    w0: np.ndarray
+    phot: np.ndarray          # (traces, C) float64
+    index: np.ndarray         # (n,) rows of phot
+
+
+def _rows_by_field(pos, cats, phot, field_sizes, F, field_arrays=None):
     """Rows per field: categories in first-appearance order, then trace
-    order (binary_trace_categories -> btc_photometries iteration).
+    order (binary_trace_categories -> btc_photometries iteration); with
+    ``field_arrays`` a list, each field's ``FieldArrays`` is appended.
 
     Categories pack into uint64 bitmask words (one per 64 cycles); one
     np.unique per field recovers the groups and a stable argsort on the
@@ -589,6 +613,11 @@ def _rows_by_field(pos, cats, phot, field_sizes, F):
         rows = [(cat_tuples[inv[j]], int(h0_all[start + j]),
                  int(w0_all[start + j]), phot[start + j]) for j in order]
         out.append(rows)
+        if field_arrays is not None:
+            index = start + order
+            field_arrays.append(FieldArrays(inv[order], cat_tuples,
+                                            h0_all[index], w0_all[index],
+                                            phot, index))
         start = stop
     return out
 
@@ -607,7 +636,79 @@ def write_track_rows_csv(rows, n_cycles, csv_path, save_averages=False):
     """The track-photometries CSV over assembled rows (channel, field, h,
     w, category, photometries-or-mean): the reference's
     CHANNEL,FIELD,H,W,CATEGORY[,FRAME i...] schema (or AVERAGE_INTENSITY
-    with ``save_averages``); None photometries write '0'."""
+    with ``save_averages``); None photometries write '0'.
+
+    The native writer (native/trackrows_csv.py) writes the file wherever
+    every row is of the shapes run_experiment makes
+    (``trackrows_csv.as_arrays``); any other row, such as an
+    ``adjustment_function``'s ints, sends the whole file to the Python
+    writer, whose bytes the native writer's equal. While tracing is on,
+    the counter "experiment/csv_rows_native" counts the rows the native
+    writer wrote."""
+    from ..native import trackrows_csv
+
+    arrays = trackrows_csv.as_arrays(rows, save_averages)
+    if arrays is None:
+        _write_track_rows_csv_python(rows, n_cycles, csv_path,
+                                     save_averages)
+        return
+    _write_native_csv(arrays, n_cycles, csv_path, save_averages)
+
+
+def write_track_fields_csv(fields, n_cycles, csv_path):
+    """``write_track_rows_csv`` of rows that are still the rows
+    ``_rows_by_field`` made, straight from the arrays behind them, with
+    no pass over the rows: ``fields`` holds (channel, field,
+    ``FieldArrays``) in the rows' order."""
+    from ..native import trackrows_csv
+
+    channels, categories = {}, {}
+    parts = []
+    for channel, f, a in fields:
+        if a.phot.dtype != np.float64:
+            raise TypeError("the photometries must be float64")
+        c = channels.setdefault(id(channel), (len(channels), channel))[0]
+        # A category is a tuple of bools, whose str() its value fixes.
+        text = np.fromiter(
+            (categories.setdefault(t, len(categories))
+             for t in a.cat_tuples), np.int32, len(a.cat_tuples))
+        parts.append((np.full(len(a.index), c, np.int32),
+                      np.full(len(a.index), f, np.int64),
+                      a.h0.astype(np.int64), a.w0.astype(np.int64),
+                      text[a.category], a.phot[a.index]))
+    if parts:
+        ch, field, h, w, cat, values = (np.concatenate(x)
+                                        for x in zip(*parts))
+    else:
+        ch, cat = np.zeros(0, np.int32), np.zeros(0, np.int32)
+        field = h = w = np.zeros(0, np.int64)
+        values = np.zeros((0, n_cycles))
+    flags = np.zeros(len(field), bool)
+    arrays = trackrows_csv.TrackRows(
+        ch, [str(o) for _, o in channels.values()], field, h, w, flags,
+        flags, cat, [str(t) for t in categories], values,
+        np.zeros(values.shape, bool))
+    _write_native_csv(arrays, n_cycles, csv_path, False)
+
+
+def _write_native_csv(arrays, n_cycles, csv_path, save_averages):
+    """The CSV of ``trackrows_csv.TrackRows`` by the native writer, under
+    the Python writer's header; counts the rows while tracing is on."""
+    from ..native import trackrows_csv
+
+    header = trackrows_csv.HEADER + (
+        ["AVERAGE_INTENSITY"] if save_averages
+        else ["FRAME " + str(i) for i in range(n_cycles)])
+    n = trackrows_csv.write(csv_path, header, arrays)
+    if profiling.enabled():
+        profiling.bump("experiment/csv_rows_native", n)
+
+
+def _write_track_rows_csv_python(rows, n_cycles, csv_path,
+                                 save_averages=False):
+    """The track-photometries CSV by csv.writer over ``str()`` of every
+    cell: the fallback of ``write_track_rows_csv`` and the native writer's
+    oracle."""
     import csv as csv_module
 
     with open(csv_path, "w", newline="") as fh:

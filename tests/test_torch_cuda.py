@@ -201,6 +201,32 @@ def test_run_experiment_on_the_card_matches_cpu(dev, tmp_path, monkeypatch):
     assert [r[:5] for r in kg["rows"]] == [r[:5] for r in kc["rows"]]
 
 
+def test_run_experiment_csv_on_the_card_is_the_python_writers(dev,
+                                                             tmp_path):
+    """The track CSV that run_experiment writes on the card, by the native
+    writer, is the Python writer's file for the rows it returned, and
+    the counter counts every row."""
+    from fluorosequencingimageanalysis_torch.pipeline import (
+        fast_experiment as fe)
+    from fluorosequencingimageanalysis_torch.utils import profiling
+    stack = np.clip(make_experiment_stack(2, 4, 128, 128, spots_per_field=40,
+                                          seed=5), 0, 65535).astype(np.uint16)
+    for kw in ({}, {"keep_invalid": True, "mdma": True},
+               {"save_averages": True}):
+        got, want = tmp_path / "card.csv", tmp_path / "python.csv"
+        profiling.reset_counters()
+        with profiling.tracing():
+            res = Pipeline(device=dev).run_experiment(
+                stack, max_candidates=256, csv_path=str(got), **kw)
+        fe._write_track_rows_csv_python(
+            res["rows"], stack.shape[1], str(want),
+            save_averages=kw.get("save_averages", False))
+        assert len(res["rows"]) > 20
+        assert got.read_bytes() == want.read_bytes(), kw
+        assert profiling.counters()["experiment/csv_rows_native"] == \
+            len(res["rows"]), kw
+
+
 def test_hole_gathers_on_the_card_equal_the_cpu(dev):
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.integers(0, 65536, (6, 40, 50))

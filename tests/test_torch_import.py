@@ -59,6 +59,7 @@ MODULES = [
     "fluorosequencingimageanalysis_torch.notebook",
     "fluorosequencingimageanalysis_torch.native.trackcsv",
     "fluorosequencingimageanalysis_torch.native.timetrace_csv",
+    "fluorosequencingimageanalysis_torch.native.trackrows_csv",
     "fluorosequencingimageanalysis_torch.ops.lognormal",
     "fluorosequencingimageanalysis_torch.ops.fused_lognormal",
     "fluorosequencingimageanalysis_torch.pipeline.experiment",
