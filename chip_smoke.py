@@ -1064,7 +1064,6 @@ def files_phases(tmpl, dev, stack4=None):
     import pickle
 
     from fluorosequencingimageanalysis_torch import _device
-    from fluorosequencingimageanalysis_torch import __main__ as cli_module
     from fluorosequencingimageanalysis_torch.api import (GROUP_FIELDS,
                                                          GROUP_FRAMES,
                                                          Pipeline)
@@ -1082,6 +1081,8 @@ def files_phases(tmpl, dev, stack4=None):
         candidate_map_fused, candidate_map_plain)
     from fluorosequencingimageanalysis_torch.ops.fused_fit import (
         fit_quality)
+    from fluorosequencingimageanalysis_torch.pipeline.files import (
+        load_stack)
     from fluorosequencingimageanalysis_torch.utils import (
         imageio as port_io)
     from fluorosequencingimageanalysis_torch.utils.synth import (
@@ -1162,10 +1163,10 @@ def files_phases(tmpl, dev, stack4=None):
                 port_io.write_tiff(files[-1], stack4[f, c])
         write_s = time.perf_counter() - t
         t = time.perf_counter()
-        loaded, _ = cli_module._load_stack(files)
+        loaded, _ = load_stack(files)
         read_s = time.perf_counter() - t
         check(loaded.dtype == np.uint16 and np.array_equal(loaded, stack4),
-              "_load_stack returns the config-4 stack from its files")
+              "load_stack returns the config-4 stack from its files")
         pipe = Pipeline(device=dev)
         kw = dict(max_candidates=EXP_K, max_spots=EXP_S)
         mem = {k: os.path.join(tmp, f"mem_{k}.csv")
@@ -1207,7 +1208,8 @@ def files_phases(tmpl, dev, stack4=None):
              in_memory_wall_s=mem_s, fields_per_s_in_memory=F_ / mem_s,
              cli_wall_s=cli_s, rows=summary["rows"],
              launches=exp_launches, csvs_byte_equal=True,
-             note="read_s: _load_stack alone in this process; "
+             note="read_s: pipeline/files.py::load_stack alone in this "
+                  "process; "
                   "in_process_wall_s: the subcommand through "
                   "__main__.main, files to both CSVs; in_memory_wall_s: "
                   "run_experiment on the host array with both CSVs, "

@@ -55,24 +55,6 @@ import numpy as np
 from ._device import data_devices
 
 
-def _load_stack(files):
-    """files -> ([F, C, H, W] array, frame_count) via dir=cycle/file=field."""
-    from .pipeline.experiment import Experiment
-    from .utils.imageio import read_image_array
-
-    frame_indexed, field_indexed = Experiment.easy_sort_target_images(files)
-    n_fields = {len(v) for v in frame_indexed.values()}
-    if len(n_fields) != 1:
-        raise SystemExit("every cycle directory must hold the same number "
-                         f"of field files (got counts {sorted(n_fields)})")
-    fields = []
-    for f in sorted(field_indexed):
-        fields.append(np.stack([read_image_array(p)
-                                for p in field_indexed[f]]))
-    stack = np.stack(fields)  # [F, C, H, W]
-    return stack, stack.shape[1]
-
-
 def _devices(text, many=True):
     """``--device`` as the Pipeline takes it: one device or, where the
     subcommand's method shards (``many``), a comma-separated list of them
@@ -101,20 +83,13 @@ def _method_override(args):
 
 def _cmd_run_experiment(args):
     from .api import Pipeline
-    from .config import PipelineConfig, PhotometryConfig
+    from .config import DetectConfig, PhotometryConfig, PipelineConfig
+    from .pipeline.files import FileLayoutError
 
     store = None
     if args.store:
         from .utils.checkpoint import ArtifactStore
         store = ArtifactStore(args.store)
-    stack, C = _load_stack(args.peptide_files)
-    stacks = {"ch1": stack}
-    if args.second_channel_files:
-        stack2, C2 = _load_stack(args.second_channel_files)
-        if C2 != C:
-            raise SystemExit("second channel must have the same cycle count")
-        stacks["ch2"] = stack2
-    from .config import DetectConfig
     config = PipelineConfig(
         detect=DetectConfig.from_cli(args.detect_parameters),
         photometry=PhotometryConfig.from_cli(
@@ -124,22 +99,27 @@ def _cmd_run_experiment(args):
     os.makedirs(args.output_dir, exist_ok=True)
     csv_path = os.path.join(args.output_dir, args.csv)
     category_csv_path = os.path.join(args.output_dir, args.category_csv)
-    out = pipe.run_experiment(
-        stacks, csv_path=csv_path, category_csv_path=category_csv_path,
-        category_csv_filtered=not args.all_categories,
-        category_csv_collate_fields=args.collate_fields,
-        max_candidates=args.max_candidates, max_spots=args.max_spots,
-        mdma=args.mdma, save_averages=args.save_averages,
-        keep_invalid=args.keep_invalid,
-        remainder_threshold=args.remainder_threshold,
-        dispatch=args.dispatch)
+    try:
+        out = pipe.run_experiment_files(
+            args.peptide_files, args.second_channel_files,
+            csv_path=csv_path, category_csv_path=category_csv_path,
+            category_csv_filtered=not args.all_categories,
+            category_csv_collate_fields=args.collate_fields,
+            max_candidates=args.max_candidates, max_spots=args.max_spots,
+            mdma=args.mdma, save_averages=args.save_averages,
+            keep_invalid=args.keep_invalid,
+            remainder_threshold=args.remainder_threshold,
+            dispatch=args.dispatch)
+    except FileLayoutError as e:
+        raise SystemExit(str(e)) from None
     if args.offsets_pkl:
         with open(os.path.join(args.output_dir, args.offsets_pkl),
                   "wb") as fh:
             pickle.dump({ch: (np.asarray(oh), np.asarray(ow))
                          for ch, (oh, ow) in out["offsets"].items()}, fh)
-    summary = {"fields": int(stack.shape[0]), "cycles": int(C),
-               "channels": sorted(stacks),
+    n_fields, n_cycles = out["offsets"]["ch1"][0].shape
+    summary = {"fields": int(n_fields), "cycles": int(n_cycles),
+               "channels": sorted(out["offsets"]),
                "rows": len(out["rows"]),
                "summary": out["summary"],
                "csv": csv_path, "category_csv": category_csv_path}

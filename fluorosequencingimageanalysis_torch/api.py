@@ -19,6 +19,8 @@ the device.
     out = Pipeline(device="cuda").run_stack(stack)       # [F, C, H, W]
     fits = Pipeline(device="cuda").run_zstack(frames)    # [T, H, W]
     res = Pipeline(device="cuda").run_experiment(stack, csv_path="t.csv")
+    res = Pipeline(device="cuda").run_experiment_files(
+        tif_paths, csv_path="t.csv")     # directory = cycle, file = field
     tt = Pipeline(device="cuda").run_timetrace(movie, csv_path="tt.csv")
     steps = Pipeline(device="cuda").stepfit(photometries)    # (N, T)
     signals, total, none_count, fit_info = Pipeline(
@@ -904,6 +906,30 @@ class Pipeline:
                 "invalid_fields_mask": invalid_fields_mask,
                 "csv_path": csv_path,
                 "category_csv_path": category_csv_path}
+
+    @_traced
+    def run_experiment_files(self, peptide_files, second_channel_files=None,
+                             **kw):
+        """``run_experiment`` from image files, as the ``run-experiment``
+        subcommand runs it: each channel's files sorted by directory =
+        cycle, file name = field and read into its [F, C, H, W] stack
+        (``pipeline/files.py::load_stack``, with its spans and counters),
+        channel 'ch1' from ``peptide_files`` and 'ch2' from
+        ``second_channel_files`` when given. Raises
+        ``pipeline.files.FileLayoutError`` for uneven cycle directories
+        or channels of different cycle counts. ``kw`` goes to
+        ``run_experiment``, whose dict is returned unchanged."""
+        from .pipeline.files import FileLayoutError, load_stack
+
+        stack, n_cycles = load_stack(peptide_files)
+        stacks = {"ch1": stack}
+        if second_channel_files:
+            stack2, n_cycles2 = load_stack(second_channel_files)
+            if n_cycles2 != n_cycles:
+                raise FileLayoutError(
+                    "second channel must have the same cycle count")
+            stacks["ch2"] = stack2
+        return self.run_experiment(stacks, **kw)
 
     @_traced
     def run_timetrace(self, movie, csv_path=None, search_radius=3,
