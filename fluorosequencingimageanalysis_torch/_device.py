@@ -9,6 +9,8 @@ port is imported.
 
 ``default_device`` is the device of the callers that take no ``device=``
 argument, as the reference's classes and shims take none.
+``NATIVE_STACK_DTYPES`` are the image dtypes that go to the device as
+they are.
 
 The sharding rule. ``Mesh`` and ``make_mesh`` are the counterparts of the
 JAX package's (parallel/mesh.py there): torch devices in a (data, model)
@@ -31,6 +33,11 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+# Dtypes the step takes as they are: float32, and raw camera integers,
+# which upload as-is (half the bytes of float32 for uint16) and are cast
+# on the device. Anything else is cast to float32 on the host.
+NATIVE_STACK_DTYPES = ("float32", "uint8", "uint16", "int16", "int32")
 
 
 def resolve_device(device) -> torch.device:

@@ -38,15 +38,11 @@ import warnings
 import numpy as np
 import torch
 
-from ._device import Mesh, data_devices, make_mesh, resolve_device
+from ._device import (NATIVE_STACK_DTYPES, Mesh, data_devices, make_mesh,
+                      resolve_device)
 from ._transfer import Uploader, count_fetched, fetch, wait
 from .config import PipelineConfig
 from .utils import profiling
-
-# Dtypes the step takes as they are: float32, and raw camera integers,
-# which upload as-is (half the bytes of float32 for uint16) and are cast
-# on the device. Anything else is cast to float32 on the host.
-_NATIVE_STACK_DTYPES = ("float32", "uint8", "uint16", "int16", "int32")
 
 # Fields per group of run_experiment's grouped step. A group's upload runs
 # beside the previous group's step and its host tracking beside the next
@@ -96,7 +92,7 @@ def _normalize_stack(stack):
     if isinstance(stack, torch.Tensor):
         return stack
     stack = np.asarray(stack)
-    if stack.dtype.name not in _NATIVE_STACK_DTYPES:
+    if stack.dtype.name not in NATIVE_STACK_DTYPES:
         stack = stack.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(stack))
 
@@ -918,13 +914,18 @@ class Pipeline:
         ``second_channel_files`` when given. Raises
         ``pipeline.files.FileLayoutError`` for uneven cycle directories
         or channels of different cycle counts. ``kw`` goes to
-        ``run_experiment``, whose dict is returned unchanged."""
+        ``run_experiment``, whose dict is returned unchanged. On a CUDA
+        device each stack is read into pinned host memory, which the
+        upload reads as it is."""
         from .pipeline.files import FileLayoutError, load_stack
 
-        stack, n_cycles = load_stack(peptide_files)
+        # The stacks are held until run_experiment returns, so that no
+        # later load reuses a pinned block while an upload still reads it.
+        stack, n_cycles = load_stack(peptide_files, self.device)
         stacks = {"ch1": stack}
         if second_channel_files:
-            stack2, n_cycles2 = load_stack(second_channel_files)
+            stack2, n_cycles2 = load_stack(second_channel_files,
+                                           self.device)
             if n_cycles2 != n_cycles:
                 raise FileLayoutError(
                     "second channel must have the same cycle count")

@@ -8,11 +8,16 @@ Seeded 3-field x 4-cycle runs of 64x64 uint16 images
 (``utils/synth.py::make_experiment_stack``) are written as one
 uncompressed TIFF a field in a directory a cycle, in one strip and in
 several, by the benchmark's writer (``fsbench/traffic/experiment_files.py``).
-Held: the stacks equal; the CSVs of ``run_experiment_files`` and of the
+Held: the stacks equal, also where one file is big-endian, Deflate-
+compressed, uint8 (promoted as numpy stacks it) or of another shape
+(refused as numpy refuses it), with no ``np.stack`` where every file
+decodes alike; the CSVs of ``run_experiment_files`` and of the
 subcommand byte-equal to ``run_experiment``'s on the stack the plain
 reader read, for one channel and for two; uneven directories and channels
 of different cycle counts refused with the subcommand's text; the spans
-and counters recorded only while tracing is on.
+and counters recorded only while tracing is on. On a card (``-m cuda``):
+the stack read into pinned memory and the CSVs of the files' run equal to
+those of the in-memory stack's, call after call.
 """
 
 import json
@@ -28,7 +33,7 @@ from fluorosequencingimageanalysis_torch.pipeline.files import (
     FileLayoutError, load_stack)
 from fluorosequencingimageanalysis_torch.utils import profiling, synth
 from fluorosequencingimageanalysis_torch.utils.imageio import (
-    read_image_array)
+    read_image_array, write_tiff)
 from fsbench.reference import tiff
 from fsbench.traffic.experiment_files import write_files
 
@@ -38,14 +43,15 @@ F, C, H, W = 3, 4, 64, 64
 KW = dict(max_candidates=256, max_spots=128)
 
 
-def _stack(seed):
-    x = synth.make_experiment_stack(F, C, H, W, spots_per_field=12,
-                                    seed=seed)
+def _stack(seed, n_fields=F, n_cycles=C):
+    x = synth.make_experiment_stack(n_fields, n_cycles, H, W,
+                                    spots_per_field=12, seed=seed)
     return np.clip(np.rint(x), 0, 65535).astype(np.uint16)
 
 
-def _files(tmp_path, seed, rows_per_strip=None, name="run"):
-    stack = _stack(seed)
+def _files(tmp_path, seed, rows_per_strip=None, name="run", n_fields=F,
+           n_cycles=C):
+    stack = _stack(seed, n_fields, n_cycles)
     root = tmp_path / name
     root.mkdir()
     return stack, write_files(stack, str(root), rows_per_strip)
@@ -166,7 +172,8 @@ def test_spans_and_counters_only_while_tracing(tmp_path):
         timings, counts = profiling.timings(), profiling.counters()
         assert set(SPANS) <= set(timings)
         assert timings["api/files/sort"]["count"] == 1
-        assert timings["api/files/read"]["count"] == F
+        assert timings["api/files/read"]["count"] == F * C
+        assert timings["api/files/assemble"]["count"] == F * C
         assert counts["files/read"] == F * C
         assert counts["files/bytes"] == F * C * H * W * 2
         profiling.reset_timings()
@@ -178,3 +185,144 @@ def test_spans_and_counters_only_while_tracing(tmp_path):
     finally:
         profiling.reset_timings()
         profiling.reset_counters()
+
+
+def _path(files, field, cycle):
+    return next(p for p in files
+                if p.endswith(f"cycle_{cycle:02d}/field_{field:03d}.tif"))
+
+
+def _no_stack(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("np.stack called")
+    monkeypatch.setattr(np, "stack", refuse)
+
+
+@pytest.mark.parametrize("rows_per_strip", [None, 7])
+def test_uniform_files_go_into_one_buffer_without_np_stack(
+        tmp_path, monkeypatch, rows_per_strip):
+    stack, files = _files(tmp_path, 10, rows_per_strip)
+    want = tiff.read_stack(files)
+    old, _ = _old_load_stack(files)
+    profiling.reset_counters()
+    _no_stack(monkeypatch)
+    try:
+        with profiling.tracing():
+            got, n_cycles = load_stack(files, device="cpu")
+        counts = profiling.counters()
+    finally:
+        profiling.reset_counters()
+    assert isinstance(got, np.ndarray) and n_cycles == C
+    assert got.dtype == old.dtype == np.uint16
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, old)
+    assert counts["files/bytes"] == got.nbytes
+    assert counts["files/pinned_bytes"] == 0
+
+
+@pytest.mark.parametrize("where", [(0, 0), (1, 2), (F - 1, C - 1)])
+@pytest.mark.parametrize("encoding", [dict(byteorder=">"),
+                                      dict(compression="deflate"),
+                                      dict(compression="deflate",
+                                           predictor=True)],
+                         ids=["big_endian", "deflate", "deflate_predictor"])
+def test_one_file_encoded_otherwise_reads_the_same(tmp_path, monkeypatch,
+                                                   where, encoding):
+    stack, files = _files(tmp_path, 11, 9)
+    want = tiff.read_stack(files)
+    f, c = where
+    write_tiff(_path(files, f, c), stack[f, c], **encoding)
+    old, _ = _old_load_stack(files)
+    _no_stack(monkeypatch)
+    got, _ = load_stack(files)
+    assert got.dtype == old.dtype == np.uint16
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, old)
+
+
+@pytest.mark.parametrize("where", [(0, 0), (0, 1), (1, 2), (F - 1, C - 1)])
+def test_a_uint8_file_among_uint16_is_promoted_as_before(tmp_path, where):
+    stack, files = _files(tmp_path, 12)
+    f, c = where
+    small = (stack[f, c] >> 8).astype(np.uint8)
+    write_tiff(_path(files, f, c), small)
+    want = stack.copy()
+    want[f, c] = small
+    old, _ = _old_load_stack(files)
+    profiling.reset_counters()
+    try:
+        with profiling.tracing():
+            got, n_cycles = load_stack(files, device="cpu")
+        counts = profiling.counters()
+    finally:
+        profiling.reset_counters()
+    assert n_cycles == C
+    assert got.dtype == old.dtype == np.uint16
+    np.testing.assert_array_equal(got, old)
+    np.testing.assert_array_equal(got, want)
+    assert counts["files/read"] == F * C
+    assert counts["files/pinned_bytes"] == 0
+
+
+@pytest.mark.parametrize("where", [(0, 0), (0, 3), (2, 1)])
+def test_a_file_of_another_shape_is_refused_as_before(tmp_path, where):
+    stack, files = _files(tmp_path, 13)
+    f, c = where
+    write_tiff(_path(files, f, c), stack[f, c, :, :W - 8])
+    with pytest.raises(ValueError) as old:
+        _old_load_stack(files)
+    with pytest.raises(ValueError) as got:
+        load_stack(files)
+    assert str(got.value) == str(old.value)
+    assert "same shape" in str(got.value)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_the_stack_is_read_into_pinned_memory_on_the_card(dev, tmp_path):
+    stack, files = _files(tmp_path, 14)
+    pipe = Pipeline(device=dev)
+    profiling.reset_counters()
+    try:
+        with profiling.tracing():
+            got, n_cycles = load_stack(files, pipe.device)
+        counts = profiling.counters()
+    finally:
+        profiling.reset_counters()
+    assert isinstance(got, torch.Tensor) and got.is_pinned()
+    assert got.dtype == torch.uint16 and n_cycles == C
+    np.testing.assert_array_equal(got.numpy(), tiff.read_stack(files))
+    assert counts["files/pinned_bytes"] == counts["files/bytes"] == \
+        stack.nbytes > 0
+
+
+@pytest.mark.cuda
+def test_run_experiment_files_on_the_card_writes_the_arrays_csvs(
+        dev, tmp_path):
+    """2 fields x 3 cycles, two file sets back to back and again: each
+    call's CSVs are run_experiment's on its own in-memory stack."""
+    pipe = Pipeline(device=dev)
+    sets = [_files(tmp_path, seed, name=f"run{seed}", n_fields=2,
+                   n_cycles=3)[1] for seed in (15, 16)]
+    wants = []
+    for i, files in enumerate(sets):
+        pipe.run_experiment(
+            tiff.read_stack(files), csv_path=str(tmp_path / f"w{i}.csv"),
+            category_csv_path=str(tmp_path / f"w{i}_cat.csv"), **KW)
+        wants.append((_read(tmp_path / f"w{i}.csv"),
+                      _read(tmp_path / f"w{i}_cat.csv")))
+    assert wants[0][0] != wants[1][0]
+    for k, i in enumerate((0, 1, 0, 1)):
+        out = pipe.run_experiment_files(
+            sets[i], csv_path=str(tmp_path / f"g{k}.csv"),
+            category_csv_path=str(tmp_path / f"g{k}_cat.csv"), **KW)
+        assert len(out["rows"]) > 0
+        assert (_read(tmp_path / f"g{k}.csv"),
+                _read(tmp_path / f"g{k}_cat.csv")) == wants[i]

@@ -187,10 +187,12 @@ def test_only_the_transfer_layer_pins_memory_or_makes_cuda_events():
     own. Two copies stay on the current stream, where the uploader's side
     stream and events measured slower: the step fitter's pieces and the
     hole gathers' indices (their results come back through
-    ``_transfer.fetch``)."""
+    ``_transfer.fetch``). The file loader reads each image into a pinned
+    buffer, which the uploader reads as it is (``pipeline/files.py``)."""
     layer = {"_transfer.py", os.path.join("utils", "profiling.py")}
     left_as_they_were = {os.path.join("ops", "stepfit_batch.py"),
                          os.path.join("pipeline", "fast_experiment.py")}
+    loader = {os.path.join("pipeline", "files.py")}
     pins, events = set(), set()
     for rel, path in _port_sources():
         if rel.split(os.sep)[0] == "tools":
@@ -206,5 +208,5 @@ def test_only_the_transfer_layer_pins_memory_or_makes_cuda_events():
             if (isinstance(node, ast.Call)
                     and ast.unparse(node.func) == "torch.cuda.Event"):
                 events.add(rel)
-    assert pins == {"_transfer.py"} | left_as_they_were
+    assert pins == {"_transfer.py"} | left_as_they_were | loader
     assert events == layer
