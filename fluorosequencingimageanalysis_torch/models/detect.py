@@ -191,6 +191,15 @@ def detect_and_fit_exhaustive(images, median_filter_size=5,
     is the candidate counts after the first extraction, which size the
     loop. Chunked equals single-bucket, whatever the chunk.
 
+    Traced spans (``utils.profiling.span``): ``api/detect/exhaustive``
+    (the maps, the extractions with the counts' read, the fits, up to the
+    last chunk's copy being started; device time on the card) and
+    ``api/detect/host_nms`` (the wait on the chunks' copies, their
+    concatenation and ``consolidate_host`` over the images; host clock).
+    While tracing is on, counters ``detect/exhaustive_chunks`` (the
+    chunks, once a call) and ``detect/host_nms_fits`` (the fits past the
+    R^2 gate that enter the NMS).
+
     ``images``: (B, H, W) tensor (used where it is unless ``device`` is
     given) or array (uploaded to ``device``, default "cuda"). ``chunk``:
     None = ``EXHAUSTIVE_CHUNK``. ``max_chunks``: None = unlimited; an
@@ -204,7 +213,8 @@ def detect_and_fit_exhaustive(images, median_filter_size=5,
     if chunk is None:
         chunk = EXHAUSTIVE_CHUNK
     chunk = min(chunk, max(H * W, 1))
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("api/detect/exhaustive",
+                                         device=imgs.device):
         cms = candidate_maps_batch(
             imgs, median_filter_size=median_filter_size,
             correlation_matrix=_prep_correlation_matrix(correlation_matrix))
@@ -230,17 +240,21 @@ def detect_and_fit_exhaustive(images, median_filter_size=5,
                 imgs, hs, ws, num_iters, theta_starts)
             fetched.append(fetch(
                 [hs, ws, params, ch, cw, rm, r2, sn, valid]))
-    parts = [wait(p) for p in fetched]
-    (cand_h, cand_w, params, center_h, center_w, rm, r2, sn,
-     cand_valid) = (np.concatenate([p[j] for p in parts], axis=1)
-                    for j in range(9))
-    # A NaN R^2 is kept by the reference's discard-if-less gate, the
-    # comparison detect_and_fit_batch makes.
-    passed = cand_valid & ~(r2 < r_2_threshold)
-    keep = np.stack([
-        consolidate_host(center_h[b], center_w[b], r2[b], passed[b],
-                         radius=float(consolidation_radius))
-        for b in range(B)])
+    with profiling.span("api/detect/host_nms"):
+        parts = [wait(p) for p in fetched]
+        (cand_h, cand_w, params, center_h, center_w, rm, r2, sn,
+         cand_valid) = (np.concatenate([p[j] for p in parts], axis=1)
+                        for j in range(9))
+        # A NaN R^2 is kept by the reference's discard-if-less gate, the
+        # comparison detect_and_fit_batch makes.
+        passed = cand_valid & ~(r2 < r_2_threshold)
+        keep = np.stack([
+            consolidate_host(center_h[b], center_w[b], r2[b], passed[b],
+                             radius=float(consolidation_radius))
+            for b in range(B)])
+    if profiling.enabled():
+        profiling.bump("detect/exhaustive_chunks", n_chunks)
+        profiling.bump("detect/host_nms_fits", int(passed.sum()))
     return SpotFindResult(cand_h, cand_w, params, center_h, center_w,
                           rm, r2, sn, keep, cand_valid,
                           counts.astype(np.int32))
