@@ -1682,9 +1682,9 @@ def zstack_phases(tmpl, dev):
     exh_launches = read_launches()
     check(exh_launches["candidate_map"] > 0 and
           exh_launches["fit_quality"] > 0 and
-          exh_launches["consolidate"] == 0,
-          f"kernels A and B launched on the exhaustive path, F not (its "
-          f"NMS is consolidate_host): {exh_launches}")
+          exh_launches["consolidate"] == -(-Z_EXH_T // g),
+          f"kernels A and B launched on the exhaustive path, F once a "
+          f"group over its whole candidate set: {exh_launches}")
     over = full["cand_count"][:Z_EXH_T] > Z_K
     # The host NMS alone, on the fetched arrays of each frame.
     t = time.perf_counter()
@@ -1731,9 +1731,9 @@ def zstack_phases(tmpl, dev):
     card_b = find_peptides_batch(fields)
     fp_launches = read_launches()
     check(fp_launches["candidate_map"] > 0 and
-          fp_launches["fit_quality"] > 0 and fp_launches["consolidate"] == 0,
-          f"kernels A and B launched under find_peptides, F not (uncapped: "
-          f"consolidate_host): {fp_launches}")
+          fp_launches["fit_quality"] > 0 and fp_launches["consolidate"] == 2,
+          f"kernels A and B launched under find_peptides, F once a call "
+          f"(uncapped: over the whole candidate set): {fp_launches}")
     t = time.perf_counter()
     cpu = find_peptides(fields[0], device="cpu")
     fp_cpu_s = time.perf_counter() - t
@@ -2025,9 +2025,9 @@ def timetrace_phases(tmpl, dev):
     for r in runs:
         check(r["launches"]["candidate_map"] == 1 and
               r["launches"]["fit_quality"] >= 1 and
-              r["launches"]["consolidate"] == 0,
-              f"frame 0's uncapped detection launched both kernels, and "
-              f"kernel F not (consolidate_host): {r['launches']}")
+              r["launches"]["consolidate"] == 1,
+              f"frame 0's uncapped detection launched kernel A once, B "
+              f"once a chunk and F once: {r['launches']}")
         check(r["unnamed_share"] < TT_UNNAMED_SHARE,
               f"share of the wall no stage names: {r['unnamed_share']}")
     check(len(table) == 1 + n * T and

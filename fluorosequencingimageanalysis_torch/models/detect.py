@@ -8,11 +8,12 @@ Counterpart of fluorosequencingimageanalysis_tpu/models/detect.py:
 ``detect_and_fit_batch`` is the device program over a static
 (B, max_candidates) bucket with a validity mask; ``detect_and_fit_
 exhaustive`` fits every above-threshold candidate in chunks of one bucket
-and consolidates on the host; ``find_peptides`` and its batch and lean
-forms return the reference's psfs contract ({(rounded h, rounded w):
-12-tuple}, pflib.py:395-428). The host-facing entry points take ``device=``
-and run on the card unless the caller names the CPU; tensors they are
-handed stay where they are.
+and consolidates their union (kernel F on the card, ``consolidate_host``
+on the CPU); ``find_peptides`` and its batch and lean forms return the
+reference's psfs contract ({(rounded h, rounded w): 12-tuple},
+pflib.py:395-428). The host-facing entry points take ``device=`` and run
+on the card unless the caller names the CPU; tensors they are handed stay
+where they are.
 
 ``fit_type="monte_carlo"`` takes ``_detect_and_fit_monte_carlo``: kernel A's
 candidates, the normalised patches, and kernel D's random search over
@@ -186,19 +187,25 @@ def detect_and_fit_exhaustive(images, median_filter_size=5,
     The correlation maps are computed once (kernel A on the card);
     ``extract_candidates_chunk`` takes ``chunk`` candidates at a time with
     a device-resident exclusion mask; each chunk's fits run through kernel
-    B and copy back without waiting; the quality-ranked NMS runs on the
-    host over the union (``consolidate_host``). The one host read inside
-    is the candidate counts after the first extraction, which size the
-    loop. Chunked equals single-bucket, whatever the chunk.
+    B; the chunks are joined along the candidate axis on their device.
+    The quality-ranked NMS runs over the union: on the card kernel F
+    (``consolidate``, one launch for the B images, the R^2 gate on the
+    card, no host read), on the CPU ``consolidate_host``, which gives the
+    same mask. The joined fields (and on the card the keep mask) copy back
+    in one fetch. The one host read inside is the candidate counts after
+    the first extraction, which size the loop. Chunked equals
+    single-bucket, whatever the chunk.
 
     Traced spans (``utils.profiling.span``): ``api/detect/exhaustive``
-    (the maps, the extractions with the counts' read, the fits, up to the
-    last chunk's copy being started; device time on the card) and
-    ``api/detect/host_nms`` (the wait on the chunks' copies, their
-    concatenation and ``consolidate_host`` over the images; host clock).
-    While tracing is on, counters ``detect/exhaustive_chunks`` (the
-    chunks, once a call) and ``detect/host_nms_fits`` (the fits past the
-    R^2 gate that enter the NMS).
+    (the maps, the extractions with the counts' read, the fits, the join,
+    kernel F on the card, up to the copy being started; device time on
+    the card) and ``api/detect/host_nms`` (the wait on that copy and the
+    result's assembly, and on the CPU the gate and ``consolidate_host``
+    over the images; host clock). While tracing is on, counters
+    ``detect/exhaustive_chunks`` (the chunks, once a call) and
+    ``detect/host_nms_fits`` (the fits past the R^2 gate that enter the
+    NMS, counted from the fetched arrays); kernel F bumps
+    ``detect/consolidate_launches``.
 
     ``images``: (B, H, W) tensor (used where it is unless ``device`` is
     given) or array (uploaded to ``device``, default "cuda"). ``chunk``:
@@ -231,24 +238,30 @@ def detect_and_fit_exhaustive(images, median_filter_size=5,
                 "dropped). Raise max_chunks for exhaustive coverage.",
                 int(counts.max()), n_chunks, max_chunks)
             n_chunks = max_chunks
-        fetched = []
+        chunks = []
         for i in range(n_chunks):
             if i > 0:
                 hs, ws, valid, _rem, excluded = extract_candidates_chunk(
                     cms, excluded, chunk, float(c_std))
             params, ch, cw, rm, r2, sn = _fit_quality_core(
                 imgs, hs, ws, num_iters, theta_starts)
-            fetched.append(fetch(
-                [hs, ws, params, ch, cw, rm, r2, sn, valid]))
+            chunks.append((hs, ws, params, ch, cw, rm, r2, sn, valid))
+        joined = [torch.cat(parts, dim=1) for parts in zip(*chunks)]
+        if imgs.is_cuda:
+            _, _, _, ch, cw, _, r2, _, valid = joined
+            # A NaN R^2 is kept by the reference's discard-if-less gate,
+            # the comparison detect_and_fit_batch makes.
+            passed = valid & ~(r2 < r_2_threshold)
+            joined.append(consolidate(ch, cw, r2, passed,
+                                      radius=float(consolidation_radius)))
+        pending = fetch(joined)
     with profiling.span("api/detect/host_nms"):
-        parts = [wait(p) for p in fetched]
         (cand_h, cand_w, params, center_h, center_w, rm, r2, sn,
-         cand_valid) = (np.concatenate([p[j] for p in parts], axis=1)
-                        for j in range(9))
-        # A NaN R^2 is kept by the reference's discard-if-less gate, the
-        # comparison detect_and_fit_batch makes.
+         cand_valid, *keep) = wait(pending)
+        # The same gate on the fetched arrays: the CPU's NMS input, and
+        # the count of fits past it.
         passed = cand_valid & ~(r2 < r_2_threshold)
-        keep = np.stack([
+        keep = keep[0] if keep else np.stack([
             consolidate_host(center_h[b], center_w[b], r2[b], passed[b],
                              radius=float(consolidation_radius))
             for b in range(B)])

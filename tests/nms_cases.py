@@ -4,7 +4,8 @@ arrays: ``case(name)`` returns ``(center_h, center_w, r2, valid, radius,
 cand)`` with (B, N) arrays and ``cand`` None or the (cand_h, cand_w) pair
 of the Monte-Carlo detector's window gate. The CPU tests run them through
 the header built with g++, the card tests through the kernel, both against
-the plain twin.
+the plain twin. ``HOST_NAMES`` are cases too large for the twin's O(N^2)
+adjacency; the tests hold them to ``consolidate_host``.
 """
 
 import numpy as np
@@ -42,8 +43,65 @@ def _random(rng, b, n, side, nan_share=0.05, valid_share=0.85):
     return ch, cw, r2, valid
 
 
+def _uncapped_frames(rng):
+    """Two dense 512x512 frames as the uncapped detection hands them to its
+    NMS: 12,288 slots, three chunks of 4,096, holding 11,700 and 10,000
+    candidates, the rest invalid padding (with centers and high R^2 that
+    would count if the mask were ignored). Most candidates lie around
+    2,000 spots a frame (~4 fits a spot), the others anywhere; the mask is
+    the R^2 gate's (~6,600 fits past it in the first frame), with NaN R^2
+    passing, tied scores, non-finite centers and pairs exactly the radius
+    (4) apart on integer and half-integer coordinates."""
+    chunk, n_chunks, radius = 4096, 3, 4.0
+    n = chunk * n_chunks
+    side = 512.0
+    ch = rng.uniform(0, side, (2, n)).astype(F32)
+    cw = rng.uniform(0, side, (2, n)).astype(F32)
+    r2 = rng.uniform(0.7, 1.0, (2, n)).astype(F32)
+    cand_valid = np.zeros((2, n), bool)
+    for b, n_cand in enumerate((11_700, 10_000)):
+        spots = rng.uniform(16, side - 16, (2000, 2))
+        near = 8_000 * n_cand // 11_700
+        which = rng.integers(0, 2000, near)
+        pos = spots[which] + rng.normal(0, 0.4, (near, 2))
+        q = np.concatenate([rng.uniform(0.6, 1.0, near),
+                            rng.uniform(0.0, 0.8, n_cand - near)])
+        # Extraction takes the strongest candidates first: mostly the
+        # spots' in the first chunks, noise in the last.
+        order = np.argsort(rng.uniform(size=n_cand) +
+                           (np.arange(n_cand) >= near))
+        ch[b, :near] = pos[:, 0]
+        cw[b, :near] = pos[:, 1]
+        ch[b, :n_cand] = ch[b, :n_cand][order]
+        cw[b, :n_cand] = cw[b, :n_cand][order]
+        r2[b, :n_cand] = q[order]
+        cand_valid[b, :n_cand] = True
+        # Tied scores: a fifth of the R^2 rounded to two places.
+        tie = rng.uniform(size=n_cand) < 0.2
+        r2[b, :n_cand][tie] = np.round(r2[b, :n_cand][tie], 2)
+        r2[b, rng.choice(n_cand, 60, replace=False)] = np.nan
+        bad = rng.choice(n_cand, 12, replace=False)
+        ch[b, bad[:4]] = [np.nan, np.inf, -np.inf, np.nan]
+        cw[b, bad[4:8]] = [np.inf, np.nan, -np.inf, np.inf]
+        ch[b, bad[8:]] = F32(1e30)
+        # Pairs exactly the radius apart, along either axis, both past
+        # the gate: the lower-ranked one is suppressed only by <=.
+        at = 2 * rng.choice((n_cand - 1) // 2, 40, replace=False)
+        for k, i in enumerate(at):
+            h0 = F32(rng.integers(20, 490) + 0.5 * (k % 2))
+            w0 = F32(rng.integers(20, 490))
+            dh, dw = (radius, 0.0) if k % 2 else (0.0, radius)
+            ch[b, i], cw[b, i] = h0, w0
+            ch[b, i + 1], cw[b, i + 1] = h0 + F32(dh), w0 + F32(dw)
+            r2[b, i], r2[b, i + 1] = F32(0.95), F32(0.9)
+    valid = cand_valid & ~(r2 < F32(0.7))   # the R^2 gate
+    return ch, cw, r2, valid, radius, None
+
+
 def case(name):
     rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "uncapped_frames":
+        return _uncapped_frames(rng)
     if name == "chains_r4":
         return _chains_nan_and_ties(4.0)
     if name == "chains_r2.5":
@@ -140,3 +198,6 @@ NAMES = ("chains_r4", "chains_r2.5", "dense", "sparse_wide", "strip",
          "radius_1e-20", "radius_nan", "radius_-4", "radius_3e19",
          "radius_1e20", "radius_1e19", "radius_1e-19", "tiny_cluster",
          "no_fits")
+
+# Too large for the plain twin: held to consolidate_host.
+HOST_NAMES = ("uncapped_frames",)

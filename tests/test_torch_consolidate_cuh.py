@@ -9,8 +9,9 @@ atomics fill a cell in any order, and the result must not depend on it),
 then Jacobi rounds of ``nms::decide`` until no fit is undecided. Built
 with -ffp-contract=off, as the kernel with -fmad=false, it must give the
 twin's keep mask and each image's round count exactly, on every case of
-``nms_cases`` (skipped where there is no g++). The card tests hold the
-kernel itself to the same twin.
+``nms_cases`` (skipped where there is no g++), and ``consolidate_host``'s
+mask on the cases too large for the twin. The card tests hold the kernel
+itself to the same twin.
 """
 
 import shutil
@@ -188,6 +189,22 @@ def test_header_equals_the_plain_twin(harness, name):
     np.testing.assert_array_equal(rounds, want_rounds)
     # Every case but "no valid fit" keeps something and decides in rounds.
     assert (want_rounds > 0).any() == bool(valid.any())
+
+
+@pytest.mark.parametrize("name", nms_cases.HOST_NAMES)
+def test_header_equals_consolidate_host_at_the_uncapped_density(harness,
+                                                                name):
+    """The uncapped path's NMS input, 12,288 slots a frame (too many for
+    the twin's adjacency): the header's mask equals ``consolidate_host``'s,
+    which the uncapped detection runs on the CPU, bit for bit."""
+    ch, cw, r2, valid, radius, cand = nms_cases.case(name)
+    want = np.stack([cons.consolidate_host(ch[b], cw[b], r2[b], valid[b],
+                                           radius)
+                     for b in range(ch.shape[0])])
+    keep, rounds = _run_harness(harness, ch, cw, r2, valid, radius, cand)
+    np.testing.assert_array_equal(keep, want)
+    assert (rounds > 0).all() and not (keep & ~valid).any()
+    assert (valid.sum(1) > 2 * keep.sum(1)).all()
 
 
 def test_cpu_tensors_take_the_plain_twin(monkeypatch):
