@@ -606,10 +606,14 @@ class Pipeline:
         thread's step loop: uploads, steps, fetches),
         "api/run_experiment/track+photometry" (the worker's host half, per
         group), "api/run_experiment/groups" (the span of both, so the
-        overlap is run_stack + track+photometry - groups), then
+        overlap is run_stack + track+photometry - groups),
+        "api/run_experiment/track_wait" (the calling thread's wait on the
+        worker after the last step), then
         "api/run_experiment/hole_flush", "api/run_experiment/rows" (row
-        post-processing and categories) and "api/run_experiment/csv"; and
-        the counter "experiment/csv_rows_native", the track-CSV rows the
+        post-processing and categories) and "api/run_experiment/csv".
+        Inside track+photometry: "api/track/spot_lists" a group and
+        ``run_experiment_stack``'s spans and counters (its docstring).
+        And the counter "experiment/csv_rows_native", the track-CSV rows the
         native writer wrote (``fast_experiment.write_track_fields_csv``
         where the rows are still ``_rows_by_field``'s, else
         ``write_track_rows_csv``).
@@ -683,7 +687,8 @@ class Pipeline:
                 field_arrays = []
                 with self._stage("api/run_experiment/track+photometry"):
                     Fg = out_grp["offsets_h"].shape[0]
-                    rhs, rws, values = _spot_lists(out_grp, Fg, C)
+                    with profiling.span("api/track/spot_lists"):
+                        rhs, rws, values = _spot_lists(out_grp, Fg, C)
                     if host_phot:
                         measured = stack[lo:lo + Fg]
                     elif dev_grp is None:   # served from the store
@@ -718,7 +723,8 @@ class Pipeline:
                                stack, keys, max_candidates=max_candidates,
                                max_spots=max_spots, stack_key=stack_key,
                                dispatch=dispatch)]
-                parts = [f.result() for f in futures]
+                with profiling.span("api/run_experiment/track_wait"):
+                    parts = [f.result() for f in futures]
             per_field = [r for p, _, _, _ in parts for r in p]
             made = list(per_field)   # the row lists _rows_by_field made
             outs = [o for _, o, _, _ in parts]

@@ -433,6 +433,16 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
 
     Returns a list of per-field row lists, each row (category, h0, w0,
     photometries (C,)) in the reference's order.
+
+    Traced spans (``utils.profiling.span``, host clock), one after another:
+    "api/track/link" (offsets, ``_link_field``) and "api/track/fill"
+    (``_fill_traces`` and the validity selection) once a field, then
+    "api/track/lookup" (concatenation, the step's per-spot values, the
+    hole mask; sextractor's host measurement), "api/track/hole_enqueue"
+    (the device gathers enqueued, or dispatched where no queue is given)
+    and "api/track/rows" (``_rows_by_field``). While tracing is on,
+    counters "experiment/traces" (traces linked, before the validity
+    filter) and "experiment/holes" (positions handed to the gathers).
     """
     check_photometry_method(photometry_method)
     host_phot = photometry_method == "sextractor"
@@ -451,94 +461,117 @@ def run_experiment_stack(stack, offsets_h, offsets_w, spot_arrays,
     H, W = stack.shape[2], stack.shape[3]
     all_pos, all_cats, field_sizes = [], [], []
     all_hole_ok, all_win_ok = [], []
+    n_traces = 0
     for f in range(F):
-        offs = [(float(offsets_h[f, c]), float(offsets_w[f, c]))
-                for c in range(C)]
-        cum = np.asarray(accumulate_offsets(offs), dtype=np.float64)
-        pos, present = _link_field(rhs[f], rws[f], (H, W), cum,
-                                   candidate_radius)
-        filled, valid, hole_ok, win_ok = _fill_traces(
-            pos, present, cum, (H, W), photometry_radius=window_radius)
-        sel = slice(None) if keep_invalid else valid
-        all_pos.append(filled[sel])
-        all_cats.append(present[sel])
-        field_sizes.append(filled.shape[0] if keep_invalid
-                           else int(valid.sum()))
-        if keep_invalid:
-            all_hole_ok.append(hole_ok)
-            all_win_ok.append(win_ok)
+        with profiling.span("api/track/link"):
+            offs = [(float(offsets_h[f, c]), float(offsets_w[f, c]))
+                    for c in range(C)]
+            cum = np.asarray(accumulate_offsets(offs), dtype=np.float64)
+            pos, present = _link_field(rhs[f], rws[f], (H, W), cum,
+                                       candidate_radius)
+        n_traces += pos.shape[0]
+        with profiling.span("api/track/fill"):
+            filled, valid, hole_ok, win_ok = _fill_traces(
+                pos, present, cum, (H, W), photometry_radius=window_radius)
+            sel = slice(None) if keep_invalid else valid
+            all_pos.append(filled[sel])
+            all_cats.append(present[sel])
+            field_sizes.append(filled.shape[0] if keep_invalid
+                               else int(valid.sum()))
+            if keep_invalid:
+                all_hole_ok.append(hole_ok)
+                all_win_ok.append(win_ok)
+    if profiling.enabled():
+        profiling.bump("experiment/traces", n_traces)
     if sum(field_sizes) == 0:
         return [[] for _ in range(F)]
-    pos = np.concatenate(all_pos)          # (Ttot, C, 2)
-    cats = np.concatenate(all_cats)        # (Ttot, C)
-    field_of = np.repeat(np.arange(F), field_sizes)
-    if keep_invalid:
-        hole_ok = np.concatenate(all_hole_ok)   # False = None Spot (NaN)
-        win_ok = np.concatenate(all_win_ok)     # False = clipped window
-
-    if host_phot:
-        # Zero padding is the clipped-slice edge semantics of an aperture
-        # sum (outside pixels contribute nothing either way), so
-        # keep_invalid needs no separate edge pass: only the None-Spot
-        # positions are masked to NaN.
-        from .spots import sextractor_aperture_sums
-
-        stack_np = (stack.cpu().numpy() if isinstance(stack, torch.Tensor)
-                    else np.asarray(stack))
-        phot = np.full((pos.shape[0], C), np.nan, np.float64)
-        start = 0
-        for f in range(F):
-            stop = start + field_sizes[f]
-            if stop == start:
-                continue
-            p = pos[start:stop]                       # (n, C, 2)
-            for c in range(C):
-                if not keep_invalid:
-                    phot[start:stop, c] = sextractor_aperture_sums(
-                        stack_np[f, c], p[:, c, 0], p[:, c, 1],
-                        aperture_radius, box_size, filter_size)
-                    continue
-                ok = hole_ok[start:stop, c]
-                if ok.any():
-                    phot[start:stop, c][ok] = sextractor_aperture_sums(
-                        stack_np[f, c], p[ok, c, 0], p[ok, c, 1],
-                        aperture_radius, box_size, filter_size)
-            start = stop
-        return _rows_by_field(pos, cats, phot, field_sizes, F,
-                          field_arrays)
-
-    if photometry_method in _FIT_METRIC_DEFAULTS:
-        phot = _lookup_spot_values(
-            rhs, rws, spot_values, C, field_of, pos, cats,
-            _FIT_METRIC_DEFAULTS[photometry_method])
+    # Only the intensity methods gather holes from the device: the fit
+    # metrics give holes the fit-less defaults, and sextractor measures
+    # every position on the host.
+    gathers = not host_phot and photometry_method not in _FIT_METRIC_DEFAULTS
+    with profiling.span("api/track/lookup"):
+        pos = np.concatenate(all_pos)          # (Ttot, C, 2)
+        cats = np.concatenate(all_cats)        # (Ttot, C)
+        field_of = np.repeat(np.arange(F), field_sizes)
         if keep_invalid:
-            phot[~hole_ok] = np.nan  # the reference's None Spots
-        return _rows_by_field(pos, cats, phot, field_sizes, F,
-                          field_arrays)
-
-    phot = _lookup_spot_values(rhs, rws, spot_values, C, field_of, pos,
-                               cats, np.nan)
-    hole_mask = ~cats
-    if keep_invalid:
-        # Full-window in-box holes go to the device; clipped windows are
-        # measured on the host below and None Spots stay NaN.
-        hole_mask &= win_ok & hole_ok
-    hole_t, hole_c = np.nonzero(hole_mask)
-    if hole_t.size and not skip_hole_gathers:
-        args = (stack, field_of[hole_t] * C + hole_c,
-                pos[hole_t, hole_c, 0], pos[hole_t, hole_c, 1],
-                photometry_method, window_radius, photometry_brim, chunk)
-        if hole_queue is not None:
-            hole_queue.append((_queue_photometry(*args), phot, hole_t,
-                               hole_c))
+            hole_ok = np.concatenate(all_hole_ok)  # False = None Spot (NaN)
+            win_ok = np.concatenate(all_win_ok)    # False = clipped window
+        if host_phot:
+            phot = _sextractor_photometry(
+                stack, pos, field_sizes, hole_ok if keep_invalid else None,
+                aperture_radius, box_size, filter_size)
+        elif not gathers:
+            phot = _lookup_spot_values(
+                rhs, rws, spot_values, C, field_of, pos, cats,
+                _FIT_METRIC_DEFAULTS[photometry_method])
+            if keep_invalid:
+                phot[~hole_ok] = np.nan  # the reference's None Spots
         else:
-            phot[hole_t, hole_c] = _dispatch_photometry(*args)
-    if keep_invalid:
-        _host_clipped_photometry(host_images, field_of, pos,
-                                 ~win_ok & hole_ok, photometry_method,
-                                 window_radius, photometry_brim, phot)
-    return _rows_by_field(pos, cats, phot, field_sizes, F,
-                          field_arrays)
+            phot = _lookup_spot_values(rhs, rws, spot_values, C, field_of,
+                                       pos, cats, np.nan)
+            hole_mask = ~cats
+            if keep_invalid:
+                # Full-window in-box holes go to the device; clipped
+                # windows are measured on the host below and None Spots
+                # stay NaN.
+                hole_mask &= win_ok & hole_ok
+            hole_t, hole_c = np.nonzero(hole_mask)
+    if gathers:
+        if hole_t.size and not skip_hole_gathers:
+            if profiling.enabled():
+                profiling.bump("experiment/holes", hole_t.size)
+            with profiling.span("api/track/hole_enqueue"):
+                args = (stack, field_of[hole_t] * C + hole_c,
+                        pos[hole_t, hole_c, 0], pos[hole_t, hole_c, 1],
+                        photometry_method, window_radius, photometry_brim,
+                        chunk)
+                if hole_queue is not None:
+                    hole_queue.append((_queue_photometry(*args), phot,
+                                       hole_t, hole_c))
+                else:
+                    phot[hole_t, hole_c] = _dispatch_photometry(*args)
+        if keep_invalid:
+            _host_clipped_photometry(host_images, field_of, pos,
+                                     ~win_ok & hole_ok, photometry_method,
+                                     window_radius, photometry_brim, phot)
+    with profiling.span("api/track/rows"):
+        return _rows_by_field(pos, cats, phot, field_sizes, F,
+                              field_arrays)
+
+
+def _sextractor_photometry(stack, pos, field_sizes, hole_ok, aperture_radius,
+                           box_size, filter_size):
+    """Every trace position measured on the host (sextractor): per image
+    the mesh background is subtracted and the exact circular aperture
+    summed. Zero padding is the clipped-slice edge semantics of an
+    aperture sum (outside pixels contribute nothing either way), so
+    keep_invalid needs no separate edge pass: only the None-Spot positions
+    (``hole_ok`` False, where given) stay NaN."""
+    from .spots import sextractor_aperture_sums
+
+    stack_np = (stack.cpu().numpy() if isinstance(stack, torch.Tensor)
+                else np.asarray(stack))
+    C = pos.shape[1]
+    phot = np.full((pos.shape[0], C), np.nan, np.float64)
+    start = 0
+    for f, size in enumerate(field_sizes):
+        stop = start + size
+        if stop == start:
+            continue
+        p = pos[start:stop]                       # (n, C, 2)
+        for c in range(C):
+            if hole_ok is None:
+                phot[start:stop, c] = sextractor_aperture_sums(
+                    stack_np[f, c], p[:, c, 0], p[:, c, 1],
+                    aperture_radius, box_size, filter_size)
+                continue
+            ok = hole_ok[start:stop, c]
+            if ok.any():
+                phot[start:stop, c][ok] = sextractor_aperture_sums(
+                    stack_np[f, c], p[ok, c, 0], p[ok, c, 1],
+                    aperture_radius, box_size, filter_size)
+        start = stop
+    return phot
 
 
 def _host_clipped_photometry(host_images, field_of, pos, trunc, method,

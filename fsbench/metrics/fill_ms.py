@@ -1,0 +1,19 @@
+"""Host time of the port's span ``api/track/fill``
+(``pipeline/fast_experiment.py::run_experiment_stack``: a field's
+``_fill_traces`` and the selection of its valid traces, once a field on
+the worker thread), its total over the window per call. A port without
+the span reads None."""
+
+from fsbench import program_registry
+
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "program_span"
+LAYER = "host tracking and photometry: pipeline/fast_experiment.py, native/tracklink.py"
+MOVES = "images_per_s"
+
+SPAN = "api/track/fill"
+
+
+def read(run):
+    return program_registry.span_ms_per_call(run, SPAN, key="total")
